@@ -1,0 +1,164 @@
+"""Plain versions of kernels K1 (fused_actions_advance) and K2 (advance)
+against the JAX package, on the CPU.
+
+The JAX side runs as tests/test_pallas.py pairs it: core.actions
+.execute_actions → core.advance.advance_board_deterministic /
+advance_board_given_spawns → scoring.agent_cells. The Philox spawn bits
+that the kernels share with the plain versions are checked for
+determinism per (seed, lane, cell) and against published answers.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from safelife_tpu.core import (  # noqa: E402
+    actions as JAC, advance as JADV, cells as C, scoring as JS)
+from safelife_tpu_torch.ops import physics as P  # noqa: E402
+
+
+def soup(rng, b, h, w, n_agents, spawners=False):
+    """tests/test_pallas.py::_soup: random boards with agents."""
+    board = np.zeros((b, h, w), np.int32)
+    alive = rng.random((b, h, w)) < 0.2
+    board |= alive * (C.ALIVE | C.DESTRUCTIBLE)
+    board |= ((rng.random((b, h, w)) < 0.1) * C.FROZEN).astype(np.int32)
+    board |= ((rng.random((b, h, w)) < 0.05)
+              * (C.PUSHABLE | C.PULLABLE)).astype(np.int32)
+    board |= ((rng.random((b, h, w)) < 0.03) * C.EXIT).astype(np.int32)
+    board |= (alive * (rng.integers(0, 8, (b, h, w)) << C.COLOR_BIT)
+              ).astype(np.int32)
+    if spawners:
+        board |= ((rng.random((b, h, w)) < 0.02)
+                  * (C.SPAWNING | C.FROZEN)).astype(np.int32)
+    locs = rng.integers(2, min(h, w) - 2, (b, n_agents, 2)).astype(np.int32)
+    for i in range(b):
+        for k in range(n_agents):
+            board[i, locs[i, k, 0], locs[i, k, 1]] = C.PLAYER
+    return board, locs
+
+
+def _seed(a, b):
+    return torch.tensor([a, b], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(26, 26), (7, 5)])
+@pytest.mark.parametrize("n_agents", [1, 3])
+def test_fused_plain_matches_jax(n_agents, shape):
+    rng = np.random.default_rng(3 + n_agents)
+    b, (h, w) = 16, shape
+    board, locs = soup(rng, b, h, w, n_agents)
+    acts = rng.integers(0, 9, (b, n_agents)).astype(np.int32)
+
+    xb, xl = jax.vmap(JAC.execute_actions)(
+        jnp.asarray(board), jnp.asarray(locs), jnp.asarray(acts))
+    xb = JADV.advance_board_deterministic(xb)
+    xc = JS.agent_cells(xb, xl)
+
+    pb, pl, pc = P.fused_actions_advance(
+        torch.from_numpy(board.reshape(b, h * w)), torch.from_numpy(locs),
+        torch.from_numpy(acts), torch.full((b,), 0.3), _seed(0, 0),
+        h=h, w=w, stochastic=False)
+    np.testing.assert_array_equal(pb.numpy().reshape(b, h, w),
+                                  np.asarray(xb))
+    np.testing.assert_array_equal(pl.numpy(), np.asarray(xl))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(xc))
+
+
+def test_fused_stochastic_plain_matches_injected_coins():
+    """With spawners and p = 0.3, K1's plain version equals the JAX
+    actions + advance_board_given_spawns fed the same Philox coins."""
+    rng = np.random.default_rng(11)
+    b, h, w = 8, 26, 26
+    board, locs = soup(rng, b, h, w, 2, spawners=True)
+    acts = rng.integers(0, 9, (b, 2)).astype(np.int32)
+    sp = torch.full((b,), 0.3)
+    seed = _seed(-123456789, 987654321)
+    coins = P.spawn_coins(seed, sp, b, h * w).numpy().reshape(b, h, w)
+
+    xb, xl = jax.vmap(JAC.execute_actions)(
+        jnp.asarray(board), jnp.asarray(locs), jnp.asarray(acts))
+    xb = JADV.advance_board_given_spawns(xb, jnp.asarray(coins))
+    pb, pl, pc = P.fused_actions_advance(
+        torch.from_numpy(board.reshape(b, h * w)), torch.from_numpy(locs),
+        torch.from_numpy(acts), sp, seed, h=h, w=w, stochastic=True)
+    np.testing.assert_array_equal(pb.numpy().reshape(b, h, w),
+                                  np.asarray(xb))
+    np.testing.assert_array_equal(pc.numpy(),
+                                  np.asarray(JS.agent_cells(xb, xl)))
+
+
+@pytest.mark.parametrize("p", [0.0, 1.0])
+def test_advance_plain_edge_probs(p):
+    """p = 0 and p = 1 make the coins certain: exact against JAX."""
+    rng = np.random.default_rng(4)
+    b, h, w = 16, 26, 26
+    board, _ = soup(rng, b, h, w, 1, spawners=True)
+    ref = JADV.advance_board(jnp.asarray(board), jax.random.PRNGKey(0), p)
+    got = P.advance(torch.from_numpy(board.reshape(b, h * w)),
+                    torch.full((b,), p), _seed(7, 8), h=h, w=w,
+                    stochastic=True)
+    np.testing.assert_array_equal(got.numpy().reshape(b, h, w),
+                                  np.asarray(ref))
+
+
+def test_advance_plain_spawn_fraction():
+    """At p = 0.3 about 30% of eligible cells spawn (test_pallas.py:92)."""
+    rng = np.random.default_rng(5)
+    b, h, w = 16, 26, 26
+    board, _ = soup(rng, b, h, w, 1, spawners=True)
+    elig = np.asarray(JADV.spawn_eligible(jnp.asarray(board)))
+    det = np.asarray(JADV.advance_board_deterministic(jnp.asarray(board)))
+    out = P.advance(torch.from_numpy(board.reshape(b, h * w)),
+                    torch.full((b,), 0.3), _seed(123, 0), h=h, w=w,
+                    stochastic=True).numpy().reshape(b, h, w)
+    assert elig.sum() > 500
+    frac = ((out != det) & elig).sum() / elig.sum()
+    assert 0.25 < frac < 0.35
+
+
+def test_philox_known_answers():
+    """Philox4x32-10 test vectors of the Random123 distribution."""
+    def run(ctr, key):
+        t = [torch.tensor(v, dtype=torch.int64) for v in ctr + key]
+        return [int(x) for x in P.philox4x32(t[:4], t[4:])]
+
+    assert run([0, 0, 0, 0], [0, 0]) == [
+        0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8]
+    m = 0xFFFFFFFF
+    assert run([m, m, m, m], [m, m]) == [
+        0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd]
+    assert run([0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344],
+               [0xa4093822, 0x299f31d0]) == [
+        0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1]
+
+
+def test_philox_bits_per_seed_lane_cell():
+    bits = P.philox_bits(_seed(5, -6), 4, 100)
+    again = P.philox_bits(_seed(5, -6), 6, 120)
+    # The bits of (lane, cell) do not depend on the batch's extent.
+    np.testing.assert_array_equal(bits.numpy(), again[:4, :100].numpy())
+    assert bits.min() >= 0 and bits.max() < 2 ** 32
+    assert len(np.unique(bits.numpy())) == bits.numel()
+    other = P.philox_bits(_seed(5, -5), 4, 100)
+    assert (bits != other).float().mean() > 0.99
+    # Uniform in mean over many draws.
+    u = (P.philox_bits(_seed(1, 2), 64, 676) >> 8).double() / 2 ** 24
+    assert abs(float(u.mean()) - 0.5) < 0.01
+
+
+def test_shapes_outside_the_kernels_raise():
+    board = torch.zeros((2, 9), dtype=torch.int32)
+    locs = torch.zeros((2, 1, 2), dtype=torch.int32)
+    acts = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        P.fused_actions_advance(board, locs, acts, torch.zeros(2),
+                                _seed(0, 0), h=3, w=3, stochastic=False)
+    with pytest.raises(ValueError):
+        P.advance(board, torch.zeros(2), _seed(0, 0), h=4, w=4,
+                  stochastic=False)
