@@ -30,8 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: source file -> (C entry point, its argument types)
 KERNELS = {
-    "advance.cu": ("sl_advance", [_P] * 4 + [_I] * 4 + [_P]),
-    "physics.cu": ("sl_fused_actions_advance", [_P] * 8 + [_I] * 5 + [_P]),
+    "advance.cu": ("sl_advance", [_P] * 4 + [_I] * 7 + [_P]),
+    "physics.cu": ("sl_fused_actions_advance", [_P] * 8 + [_I] * 8 + [_P]),
     "obs.cu": ("sl_recenter_views", [_P] * 7 + [_I] * 8 + [_P]),
 }
 _HEADERS = ("ca.cuh",)
@@ -119,12 +119,18 @@ def build_logs():
 
 def launch(entry, device, *args):
     """Call a kernel's C entry point on ``device`` and PyTorch's current
-    stream there; raises if the launch was refused."""
-    lib = kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, entry)(*args, stream)
+    stream there; raises if the launch was refused.
+
+    The CUDA runtime launches on the calling thread's current device, so
+    the call switches to ``device`` only when that is another one."""
+    fn = getattr(kernels(), entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, stream)
     if code != 0:
-        msg = getattr(lib, entry + "_error")(code).decode()
+        msg = getattr(kernels(), entry + "_error")(code).decode()
         raise RuntimeError("%s launch failed: CUDA error %d (%s)"
                            % (entry, code, msg))

@@ -2,17 +2,26 @@
 // agent's post-advance cell.
 //
 // Replaces the Pallas kernel `fused_actions_advance` / `_physics_kernel`
-// (`_actions_block`, `_advance_block`) in
-// safelife_tpu/ops/physics.py:178-350. Bound by memory like K2: the board is
-// read once and written once, plus a few words per agent.
+// (`_actions_block`, `_advance_block`) in safelife_tpu/ops/physics.py:
+// 178-350. Bound on the H100 by int32 operations (55 a cell for the CA step
+// plus about 60 an agent, at 16.7 T a second) ahead of bytes (8 a cell:
+// the board read once and written once, plus a few words an agent).
 //
-// One thread block takes one board, staged in shared memory. Agents act
-// strictly in index order (agent k sees agent k-1's writes), so thread 0
-// applies them one after another: each action reads its four cells (agent,
-// ahead, two ahead, behind; distinct because min(h, w) >= 4), computes the
-// four new values and writes them back. That serial part touches 4 cells per
-// agent and costs little beside the CA step, which all threads then run.
-// After a barrier, thread k reads agent k's cell at its new location.
+// A block takes `boards_per_block` consecutive boards, as K2 does
+// (advance.cu): asynchronous 16-byte staging copies, then the actions, then
+// the shared separable CA step of ca.cuh, then the readback and 16-byte
+// stores.
+//
+// Actions: agents act strictly in index order (agent k sees agent k-1's
+// writes), so one thread per board applies them one after another, and
+// the boards of a block act in parallel. Each action reads and writes its
+// four cells (agent, ahead, two ahead, behind) one at a time in the order
+// of the reference's `agent_body` (safelife_tpu/core/actions.py:163-242),
+// so on boards with min(H, W) < 4, where those cells can coincide, a write
+// is seen by the later reads exactly as there; on larger boards the cells
+// are distinct and the result equals the four-cell form. Coordinates are
+// reduced to the board once an agent; its neighbours wrap by compare and
+// add. After the CA step the same thread reads its agents' new cells.
 #include <cuda_runtime.h>
 
 #include "ca.cuh"
@@ -21,107 +30,112 @@ namespace {
 
 using namespace sl;
 
+// One agent's action on the board `s` (shared memory). (ly, lx) is its
+// recorded location; writes its new location to (new_y, new_x).
 __device__ void apply_action(int* s, int h, int w, int act, int ly, int lx,
                              int* new_y, int* new_x) {
   *new_y = ly;
   *new_x = lx;
-  // Two's complement: act 0 gives direction 3, as in the JAX kernel.
+  const int y0 = floor_mod(ly, h), x0 = floor_mod(lx, w);
+  const int p0 = y0 * w + x0;
+  int v0 = s[p0];
+  if (act == 0 || !(v0 & AGENT)) return;
+
+  // Two's complement: act 0 would give direction 3, as in the JAX code.
   const int dirn = (act - 1) & 3;
   const bool odd = (dirn & 1) == 1;
   const int dx = odd ? 2 - dirn : 0;
   const int dy = odd ? 0 : dirn - 1;
-  const int y0 = floor_mod(ly, h), x0 = floor_mod(lx, w);
-  const int y1 = floor_mod(y0 + dy, h), x1 = floor_mod(x0 + dx, w);
-  const int i0 = y0 * w + x0;
-  const int i1 = y1 * w + x1;
-  const int i2 = floor_mod(y0 + 2 * dy, h) * w + floor_mod(x0 + 2 * dx, w);
-  const int i3 = floor_mod(y0 - dy, h) * w + floor_mod(x0 - dx, w);
-  const int v0 = s[i0], v1 = s[i1], v2 = s[i2], v3 = s[i3];
-  if (act == 0 || !(v0 & AGENT)) return;
+  const int y1 = wrap1(y0 + dy, h), x1 = wrap1(x0 + dx, w);
+  const int p1 = y1 * w + x1;
+  const int p2 = wrap1(y1 + dy, h) * w + wrap1(x1 + dx, w);
+  const int p3 = wrap1(y0 - dy, h) * w + wrap1(x0 - dx, w);
 
-  const int v0o = (v0 & ~ORIENTATION_MASK) | (dirn << ORIENTATION_BIT);
-  int n0, n1, n2 = v2, n3 = v3;
+  v0 = (v0 & ~ORIENTATION_MASK) | (dirn << ORIENTATION_BIT);
+  s[p0] = v0;
   if (act >= 5) {  // toggle: create, destroy or shove
-    n0 = v0o;
-    n1 = v1;
+    const int v1 = s[p1];
     if (v1 == 0) {
-      n1 = ALIVE | DESTRUCTIBLE | (v0o & COLORS);
+      s[p1] = ALIVE | DESTRUCTIBLE | (v0 & COLORS);
     } else if (v1 & DESTRUCTIBLE) {
-      n1 = (v1 & AGENT) ? ((v1 ^ (AGENT | DESTRUCTIBLE)) | FROZEN) : 0;
-    } else if (~v0o & v1 & PUSHABLE) {
+      s[p1] = (v1 & AGENT) ? ((v1 ^ (AGENT | DESTRUCTIBLE)) | FROZEN) : 0;
+    } else if (~v0 & v1 & PUSHABLE) {
+      const int v2 = s[p2];
       if (v2 == 0) {
-        n1 = 0;
-        n2 = v1;
+        s[p2] = v1;
+        s[p1] = 0;
       } else if (v2 & EXIT) {
-        n1 = 0;
+        s[p1] = 0;
       }
     }
-  } else {  // move: push, walk, exit, then pull
-    const bool push = (~v0o & v1 & PUSHABLE) != 0;
-    const bool push_empty = push && v2 == 0;
-    const bool push_exit = push && v2 != 0 && (v2 & EXIT);
-    const bool empty = !push && v1 == 0;
-    const bool exit_move =
-        !push && !empty && (v0o & v1 & EXIT) && !(v1 & AGENT);
-    const bool do_move = push_empty || push_exit || empty;
-    const bool do_reloc = do_move || exit_move;
-    const bool pull = do_reloc && (~v0o & v3 & PULLABLE);
-    n0 = do_reloc ? (pull ? v3 : 0) : v0o;
-    n1 = do_move ? v0o : v1;
-    if (push_empty) n2 = v1;
-    if (pull) n3 = 0;
-    if (do_reloc) {
-      *new_y = y1;
-      *new_x = x1;
-    }
+    return;
   }
-  s[i0] = n0;
-  s[i1] = n1;
-  s[i2] = n2;
-  s[i3] = n3;
+  // move: push, walk, exit, then pull
+  const int v1 = s[p1], v2 = s[p2];
+  const bool push = (~v0 & v1 & PUSHABLE) != 0;
+  const bool push_empty = push && v2 == 0;
+  const bool push_exit = push && v2 != 0 && (v2 & EXIT);
+  const bool empty = !push && v1 == 0;
+  const bool exit_move = !push && !empty && (v0 & v1 & EXIT) && !(v1 & AGENT);
+  const bool do_move = push_empty || push_exit || empty;
+  if (!do_move && !exit_move) return;
+  if (push_empty) s[p2] = v1;
+  const int v0f = s[p0];  // the writes above may alias p0 on tiny boards
+  if (do_move) s[p1] = v0f;
+  const int v3 = s[p3];
+  const bool pull = (~v0f & v3 & PULLABLE) != 0;
+  s[p0] = pull ? v3 : 0;
+  if (pull) s[p3] = 0;
+  *new_y = y1;
+  *new_x = x1;
 }
 
-__global__ void physics_kernel(const int* __restrict__ board,
-                               const int* __restrict__ locs,
-                               const int* __restrict__ actions,
-                               const float* __restrict__ spawn_prob,
-                               const int* __restrict__ seed,
-                               int* __restrict__ out_board,
-                               int* __restrict__ out_locs,
-                               int* __restrict__ out_cells, int h, int w,
-                               int n_agents, int stochastic) {
-  extern __shared__ int s[];
+__global__ void __launch_bounds__(1024)
+    physics_kernel(const int* __restrict__ board,
+                   const int* __restrict__ locs,
+                   const int* __restrict__ actions,
+                   const float* __restrict__ spawn_prob,
+                   const int* __restrict__ seed, int* __restrict__ out_board,
+                   int* __restrict__ out_locs, int* __restrict__ out_cells,
+                   int batch, int h, int w, int n_agents,
+                   int boards_per_block, int rows_per_thread,
+                   int stochastic) {
+  extern __shared__ __align__(16) int smem[];
   const int hw = h * w;
-  const int lane = blockIdx.x;
-  const int* src = board + (size_t)lane * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) s[i] = src[i];
+  const int lane0 = blockIdx.x * boards_per_block;
+  const int nb = min(boards_per_block, batch - lane0);
+  int* s = smem;
+  uint32_t* q = reinterpret_cast<uint32_t*>(smem + boards_per_block * hw);
+
+  stage_in(s, board + (size_t)lane0 * hw, nb * hw);
   __syncthreads();
 
-  const int* lane_locs = locs + (size_t)lane * n_agents * 2;
-  int* lane_out_locs = out_locs + (size_t)lane * n_agents * 2;
-  if (threadIdx.x == 0) {
+  // One thread a board: its agents in order, then (below) their cells.
+  const int b = threadIdx.x;
+  const size_t first = (size_t)(lane0 + b) * n_agents;
+  if (b < nb) {
+    int* sb = s + b * hw;
     for (int k = 0; k < n_agents; ++k) {
-      apply_action(s, h, w, actions[(size_t)lane * n_agents + k],
-                   lane_locs[2 * k], lane_locs[2 * k + 1],
-                   &lane_out_locs[2 * k], &lane_out_locs[2 * k + 1]);
+      apply_action(sb, h, w, actions[first + k], locs[2 * (first + k)],
+                   locs[2 * (first + k) + 1], &out_locs[2 * (first + k)],
+                   &out_locs[2 * (first + k) + 1]);
     }
   }
   __syncthreads();
 
-  const float prob = spawn_prob[lane];
-  const uint32_t k0 = (uint32_t)seed[0], k1 = (uint32_t)seed[1];
-  int* dst = out_board + (size_t)lane * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x)
-    dst[i] = ca_cell(s, i, h, w, lane, stochastic != 0, k0, k1, prob);
-  // Makes this block's writes to out_board and out_locs visible to all
-  // of its threads.
-  __syncthreads();
+  ca_step_block(s, q, nb, h, w, rows_per_thread, lane0, stochastic != 0,
+                (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob);
 
-  for (int k = threadIdx.x; k < n_agents; k += blockDim.x) {
-    const int idx = lane_out_locs[2 * k] * w + lane_out_locs[2 * k + 1];
-    out_cells[(size_t)lane * n_agents + k] =
-        (idx >= 0 && idx < hw) ? dst[idx] : 0;
+  if (b < nb) {
+    const int* sb = s + b * hw;
+    for (int k = 0; k < n_agents; ++k) {
+      // This thread wrote out_locs above; its own writes are visible.
+      const int idx = out_locs[2 * (first + k)] * w +
+                      out_locs[2 * (first + k) + 1];
+      out_cells[first + k] = (idx >= 0 && idx < hw) ? sb[idx] : 0;
+    }
   }
+  store_out(out_board + (size_t)lane0 * hw, s, nb * hw);
 }
 
 }  // namespace
@@ -130,13 +144,22 @@ extern "C" int sl_fused_actions_advance(
     const void* board, const void* locs, const void* actions,
     const void* spawn_prob, const void* seed, void* out_board,
     void* out_locs, void* out_cells, int batch, int h, int w, int n_agents,
-    int stochastic, void* stream) {
+    int boards_per_block, int rows_per_thread, int threads, int stochastic,
+    void* stream) {
   if (batch == 0) return 0;
-  size_t smem = (size_t)h * w * sizeof(int);
-  physics_kernel<<<batch, 256, smem, (cudaStream_t)stream>>>(
+  const int blocks = (batch + boards_per_block - 1) / boards_per_block;
+  const size_t smem = (size_t)boards_per_block * h * w * SMEM_BYTES_PER_CELL;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        physics_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  physics_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const int*)board, (const int*)locs, (const int*)actions,
       (const float*)spawn_prob, (const int*)seed, (int*)out_board,
-      (int*)out_locs, (int*)out_cells, h, w, n_agents, stochastic);
+      (int*)out_locs, (int*)out_cells, batch, h, w, n_agents,
+      boards_per_block, rows_per_thread, stochastic);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,10 @@ Port of ``safelife_tpu/ops/physics.py``:
 Each wrapper launches its CUDA kernel for tensors on a CUDA device and
 runs its plain version (``*_plain``, built from :mod:`..core`) for tensors
 on the CPU; there is no other route. ``launches`` on each wrapper counts
-its kernel launches.
+its kernel launches. Both kernels run the CA step of ``csrc/ca.cuh`` on
+blocks of several boards; :func:`launch_shape` picks the block layout from
+the board shape and the batch. Boards of any shape up to ``MAX_CELLS``
+are taken, those smaller than 4x4 included.
 
 Randomness: the stochastic spawn coin of cell ``i`` on board ``lane`` is
 the first word of Philox4x32-10 at counter ``(i, lane, 0, 0)`` under the
@@ -25,6 +28,8 @@ versions compute the same bits with int64 tensor arithmetic
 The bits differ from the TPU's on-core generator.
 """
 
+import functools
+
 import torch
 
 from ..core import actions as AC, advance as ADV, scoring
@@ -35,9 +40,69 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 
-#: Largest board the kernels stage in shared memory without opting in to
-#: more than the default 48 KB a block.
+#: Largest board the kernels take. A block stages the raw board and one
+#: packed word a cell in shared memory (8 bytes a cell), so a board of
+#: MAX_CELLS needs 96 KB; above 48 KB a kernel opts in to more.
 MAX_CELLS = 12288
+SMEM_BYTES_PER_CELL = 8
+#: Shared memory a block of the H100 may use after opting in (232,448 B).
+MAX_SMEM_BYTES = 227 * 1024
+_DEFAULT_SMEM_BYTES = 48 * 1024
+_MAX_THREADS = 1024
+_MAX_BOARDS_PER_BLOCK = 32
+#: Threads the CA walk aims to spread a batch over: about three quarters of
+#: the 132 x 2048 an H100 holds at once. Fewer leave the walk, a chain of
+#: dependent shared-memory reads, bound by latency (measured on the card,
+#: PERF.md, PR 2).
+_TARGET_THREADS = 196608
+#: Fewest rows a thread walks: each walk also reads the two rows above its
+#: first, so shorter walks spend more on those.
+_MIN_ROWS = 4
+
+
+def block_threads(h, w, boards, rows):
+    """Threads of a K1/K2 block of ``boards`` h x w boards whose columns
+    are walked in segments of ``rows`` rows: one a segment, rounded up to
+    whole warps, at most 1024 (beyond that the threads loop)."""
+    walkers = boards * w * -(-h // rows)
+    return min(_MAX_THREADS, -(-walkers // 32) * 32)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_shape(h, w, batch):
+    """(boards_per_block, rows_per_thread, threads, shared bytes) of a
+    K1/K2 launch.
+
+    One thread walks each column of each board in the CA step, or, when
+    the batch has too few columns to keep the card busy, each segment of
+    ``rows_per_thread`` rows of one (at least 4 rows; the segments of a
+    column aim at ``_TARGET_THREADS`` threads in all). A block of n boards
+    then wants n * W * segments threads; n is the smallest count up to 32
+    that wastes the fewest lanes of its warps while the block stays within
+    1024 threads and the default 48 KB of shared memory (one board may
+    exceed either: its threads then loop, and the kernel opts in to more
+    shared memory). Never more boards than the batch holds. 26x26 boards
+    at B = 4096 give 8 boards a block of 416 threads walking 13 rows each,
+    and 43 KB.
+    """
+    segments = max(1, round(_TARGET_THREADS / (max(batch, 1) * w)))
+    rows = max(_MIN_ROWS, -(-h // segments))
+    walkers = w * -(-h // rows)     # threads one board wants
+
+    best, best_used = 1, 0.0
+    for n in range(1, min(_MAX_BOARDS_PER_BLOCK, batch) + 1):
+        if n > 1 and (n * walkers > _MAX_THREADS or
+                      n * h * w * SMEM_BYTES_PER_CELL > _DEFAULT_SMEM_BYTES):
+            break
+        used = min(n * walkers, _MAX_THREADS) / block_threads(h, w, n, rows)
+        if used > best_used + 1e-9:
+            best, best_used = n, used
+    smem = best * h * w * SMEM_BYTES_PER_CELL
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("%dx%d boards need %d bytes of shared memory a "
+                         "block, above the card's %d" % (h, w, smem,
+                                                         MAX_SMEM_BYTES))
+    return best, rows, block_threads(h, w, best, rows), smem
 
 
 def _mulhilo(m, x):
@@ -136,9 +201,6 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
     """
     dev = board.device
     _check("fused_actions_advance", board, h, w, dev)
-    if min(h, w) < 4:
-        raise NotImplementedError(
-            "fused_actions_advance needs min(H, W) >= 4, got %dx%d" % (h, w))
     if dev.type == "cpu":
         return fused_actions_advance_plain(
             board, agent_locs, actions, spawn_prob, seed,
@@ -153,12 +215,13 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
     out_board = torch.empty_like(board)
     out_locs = torch.empty_like(agent_locs)
     out_cells = torch.empty((b, a), dtype=torch.int32, device=dev)
+    bpb, rows, threads, _ = launch_shape(h, w, b)
     _build.launch(
         "sl_fused_actions_advance", dev,
         board.data_ptr(), agent_locs.data_ptr(), actions.data_ptr(),
         spawn_prob.data_ptr(), seed.data_ptr(), out_board.data_ptr(),
-        out_locs.data_ptr(), out_cells.data_ptr(), b, h, w, a,
-        int(bool(stochastic)))
+        out_locs.data_ptr(), out_cells.data_ptr(), b, h, w, a, bpb, rows,
+        threads, int(bool(stochastic)))
     fused_actions_advance.launches += 1
     return out_board, out_locs, out_cells
 
@@ -195,9 +258,10 @@ def advance(board, spawn_prob, seed, *, h, w, stochastic):
     _require("spawn_prob", spawn_prob, torch.float32, (b,), dev)
     _require("seed", seed, torch.int32, (2,), dev)
     out = torch.empty_like(board)
+    bpb, rows, threads, _ = launch_shape(h, w, b)
     _build.launch("sl_advance", dev, board.data_ptr(), spawn_prob.data_ptr(),
-                  seed.data_ptr(), out.data_ptr(), b, h, w,
-                  int(bool(stochastic)))
+                  seed.data_ptr(), out.data_ptr(), b, h, w, bpb, rows,
+                  threads, int(bool(stochastic)))
     advance.launches += 1
     return out
 

@@ -13,6 +13,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from safelife_tpu.core import cells as C  # noqa: E402
 from safelife_tpu.env import env as JE, state as JST  # noqa: E402
 from safelife_tpu.io import levels as JL  # noqa: E402
 from safelife_tpu_torch.env import env as TE, state as TST  # noqa: E402
@@ -167,3 +168,50 @@ def test_env_config_fields_match_jax():
             ("goals_may_evolve", "stochastic", "flat_obs")] == tnames
     jdef = dataclasses.asdict(JE.EnvConfig())
     assert TE.EnvConfig() == TE.EnvConfig(**{n: jdef[n] for n in tnames})
+
+
+def _tiny_levels(n=4, seed=7):
+    """3x3 levels (one agent, one exit, live cells and blocks, coloured
+    goals): the boards where an action's four cells alias."""
+    rng = np.random.default_rng(seed)
+    data = []
+    for _ in range(n):
+        board = np.zeros((3, 3), np.int32)
+        board |= (rng.random((3, 3)) < 0.3) * (C.ALIVE | C.DESTRUCTIBLE)
+        board |= (rng.random((3, 3)) < 0.2) * (C.PUSHABLE | C.PULLABLE)
+        board[0, 2] = C.EXIT
+        board[1, 1] = C.PLAYER
+        goals = ((rng.random((3, 3)) < 0.4)
+                 * (rng.integers(1, 8, (3, 3)) << C.COLOR_BIT))
+        data.append(dict(board=board, goals=goals.astype(np.int32),
+                         agent_locs=np.array([[1, 1]])))
+    return ([JL.level_from_data(d) for d in data],
+            [TL.level_from_data(d) for d in data])
+
+
+def test_step_core_tiny_board_matches_jax():
+    """step_core (K1's plain version on the CPU, through the aliasing
+    actions path), then reset_batch and the 3x3 views, on 3x3 levels."""
+    jl, tl = _tiny_levels()
+    jpool, tpool = JST.pack_levels(jl), TST.pack_levels(tl, device="cpu")
+    b, steps = 8, 12
+    kw = dict(view_shape=(3, 3), output_channels=None, time_limit=10,
+              auto_reset=False)
+    jcfg, tcfg = JE.EnvConfig(**kw), TE.EnvConfig(**kw)
+    jstate, jobs = JE.reset(jcfg, jpool, jax.random.PRNGKey(0), b)
+    tstate, tobs = TE.reset(tcfg, tpool, b)
+    _state_eq(tstate, jstate)
+    _eq(tobs, jobs, "reset obs")
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(3)
+    for t in range(steps):
+        acts = rng.integers(0, 9, (b, 1)).astype(np.int32)
+        jstate, jr, jd, _ = JE.step_core(
+            jcfg, jpool, jstate, jnp.asarray(acts), jax.random.PRNGKey(t))
+        tstate, tr, td, _ = TE.step_core(
+            tcfg, tpool, tstate, torch.from_numpy(acts), gen)
+        _state_eq(tstate, jstate)
+        _eq(tr, jr, "reward, step %d" % t)
+        _eq(td, jd, "done, step %d" % t)
+        _eq(TE._batch_obs(tcfg, tpool, tstate),
+            JE._batch_obs(jcfg, jpool, jstate), "obs, step %d" % t)

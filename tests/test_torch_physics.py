@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from safelife_tpu.core import (  # noqa: E402
     actions as JAC, advance as JADV, cells as C, scoring as JS)
+from safelife_tpu_torch.core import actions as AC  # noqa: E402
 from safelife_tpu_torch.ops import physics as P  # noqa: E402
 
 
@@ -152,13 +153,106 @@ def test_philox_bits_per_seed_lane_cell():
     assert abs(float(u.mean()) - 0.5) < 0.01
 
 
+def small_soup(rng, b, h, w, n_agents):
+    """Dense random boards for min(H, W) < 4, with the agents placed next
+    to one another (in a row or in a column, wrapping), so that their
+    actions touch each other's cells and the four cells of one action
+    alias. Agent 0 of board i takes action i mod 9, the others random."""
+    shape = (b, h, w)
+    board = np.zeros(shape, np.int64)
+    alive = rng.random(shape) < 0.3
+    board |= alive * (C.ALIVE | C.DESTRUCTIBLE)
+    for flag, p in ((C.FROZEN, 0.1), (C.PUSHABLE, 0.2), (C.PULLABLE, 0.15),
+                    (C.EXIT, 0.1), (C.DESTRUCTIBLE, 0.1)):
+        board |= (rng.random(shape) < p) * flag
+    board |= alive * (rng.integers(0, 8, shape) << C.COLOR_BIT)
+    locs = np.zeros((b, n_agents, 2), np.int64)
+    y0, x0 = rng.integers(0, h, b), rng.integers(0, w, b)
+    down = rng.random(b) < 0.5
+    for k in range(n_agents):
+        locs[:, k, 0] = (y0 + k * down) % h
+        locs[:, k, 1] = (x0 + k * ~down) % w
+        board[np.arange(b), locs[:, k, 0], locs[:, k, 1]] = C.PLAYER | (
+            rng.integers(0, 8, b) << C.COLOR_BIT)
+    acts = rng.integers(0, 9, (b, n_agents))
+    acts[:, 0] = np.arange(b) % 9
+    return (board.astype(np.int32), locs.astype(np.int32),
+            acts.astype(np.int32))
+
+
+SMALL_SHAPES = [(3, 3), (2, 5), (3, 7), (1, 4)]
+
+
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+@pytest.mark.parametrize("n_agents", [1, 3])
+def test_small_boards_fused_matches_jax(n_agents, shape):
+    """K1's plain version on boards with min(H, W) < 4 against JAX's
+    execute_actions (its aliasing path) → advance_board_deterministic →
+    agent_cells, every action on every shape."""
+    rng = np.random.default_rng(20 + n_agents + 7 * shape[1])
+    b, (h, w) = 36, shape
+    board, locs, acts = small_soup(rng, b, h, w, n_agents)
+    xb, xl = jax.vmap(JAC.execute_actions)(
+        jnp.asarray(board), jnp.asarray(locs), jnp.asarray(acts))
+    xb = JADV.advance_board_deterministic(xb)
+    xc = JS.agent_cells(xb, xl)
+
+    pb, pl, pc = P.fused_actions_advance(
+        torch.from_numpy(board.reshape(b, h * w)), torch.from_numpy(locs),
+        torch.from_numpy(acts), torch.full((b,), 0.3), _seed(0, 0),
+        h=h, w=w, stochastic=False)
+    np.testing.assert_array_equal(pb.numpy().reshape(b, h, w),
+                                  np.asarray(xb))
+    np.testing.assert_array_equal(pl.numpy(), np.asarray(xl))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(xc))
+
+
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+@pytest.mark.parametrize("n_agents", [1, 3])
+def test_small_boards_execute_actions_matches_jax(n_agents, shape):
+    """core.actions.execute_actions alone on the same boards: the aliased
+    reads and writes change cells (the check is not vacuous)."""
+    rng = np.random.default_rng(40 + n_agents + 7 * shape[1])
+    b, (h, w) = 36, shape
+    board, locs, acts = small_soup(rng, b, h, w, n_agents)
+    xb, xl = jax.vmap(JAC.execute_actions)(
+        jnp.asarray(board), jnp.asarray(locs), jnp.asarray(acts))
+    tb, tl = AC.execute_actions(torch.from_numpy(board),
+                                torch.from_numpy(locs),
+                                torch.from_numpy(acts))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(xb))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(xl))
+    assert (tb.numpy() != board).any(-1).any(-1).sum() > b // 3
+
+
 def test_shapes_outside_the_kernels_raise():
     board = torch.zeros((2, 9), dtype=torch.int32)
-    locs = torch.zeros((2, 1, 2), dtype=torch.int32)
-    acts = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        P.fused_actions_advance(board, locs, acts, torch.zeros(2),
-                                _seed(0, 0), h=3, w=3, stochastic=False)
     with pytest.raises(ValueError):
         P.advance(board, torch.zeros(2), _seed(0, 0), h=4, w=4,
                   stochastic=False)
+    big = torch.zeros((1, P.MAX_CELLS + 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        P.advance(big, torch.zeros(1), _seed(0, 0), h=1,
+                  w=P.MAX_CELLS + 1, stochastic=False)
+
+
+@pytest.mark.parametrize("shape,batch,expected", [
+    ((26, 26), 4096, (8, 13, 416, 8 * 676 * 8)),
+    ((26, 26), 512, (4, 4, 736, 4 * 676 * 8)),
+    ((26, 26), 1, (1, 4, 192, 676 * 8)),
+    ((3, 3), 7, (7, 4, 32, 7 * 9 * 8)),
+    ((2, 5), 7, (6, 4, 32, 6 * 10 * 8)),
+    ((1, 4), 512, (8, 4, 32, 8 * 4 * 8)),
+    ((3, 3), 4096, (32, 4, 96, 32 * 9 * 8)),
+    ((33, 40), 4096, (4, 33, 160, 4 * 1320 * 8)),
+    ((96, 128), 7, (1, 4, 1024, 96 * 128 * 8)),
+    ((96, 128), 4096, (1, 96, 128, 96 * 128 * 8)),
+    ((1, 12288), 2, (1, 4, 1024, 12288 * 8)),
+])
+def test_launch_shape(shape, batch, expected):
+    """Boards per block, rows per thread, threads and shared bytes of
+    K1/K2 launches: columns are cut into segments of at least 4 rows while
+    the batch has too few columns to fill the card, and the walkers of a
+    block's boards fill whole warps where they can, within 1024 threads
+    and, for more than one board, 48 KB."""
+    assert P.launch_shape(*shape, batch) == expected
