@@ -8,14 +8,19 @@ imports torch, numpy and ``safelife_tpu_torch``, never JAX nor
 non-zero:
 
 0. Environment: the card, its power limit, torch, CUDA and nvcc versions;
-   builds the three kernels from ``safelife_tpu_torch/ops/csrc``.
-1. Each kernel against its plain PyTorch version on the card, bit for bit,
-   on seeded random soups and real level boards: K1
+   builds the kernels from ``safelife_tpu_torch/ops/csrc`` (one library a
+   source, each holding a staged and a global-memory form).
+1. Each kernel form against its plain PyTorch version on the card, bit for
+   bit, on seeded random soups and real level boards: K1
    ``fused_actions_advance`` and K2 ``advance`` on boards (1,4), (2,5),
    (3,3), (4,4), (7,13), (26,26), (33,40) and (96,128) x B in {1, 7, 512,
-   4096}, K1 with 1-3 adjacent agents, both deterministic and with
-   Philox spawns at p in {0, 0.3, 1}; K3 ``recenter_views`` for views (25,25), (15,15), (7,9) x
-   A in {1,3} x E in {0,1,2} on 26x26 boards and (3,3) on 3x3 boards.
+   4096} (staged), and (112,112), (6,2100) and (128,128) x B in {1, 7, 64}
+   (above MAX_CELLS: the global-memory form), K1 with 1-3 adjacent agents,
+   both deterministic and with Philox spawns at p in {0, 0.3, 1}; K3
+   ``recenter_views`` for views (25,25), (15,15), (7,9) on 26x26 boards,
+   views larger than the board ((25,25) on 3x3, (15,15) on 10x12, (7,6) on
+   6x6), and (25,25) on 192x192 boards (too large to stage: the
+   global-memory form), each x A in {1,3} x E in {0,1,2}, and (3,3) on 3x3.
 2. The main path: the prune-dynamic v1.0 benchmark (100 levels) through
    ``run_episodes`` at 512 lanes x 1000 steps and ``benchmark`` over the
    100 levels, with the 25x25 / dense-512 policy on packed observations
@@ -27,13 +32,21 @@ non-zero:
 3. The stochastic path: the navigation benchmark (spawners) for 64 lanes x
    200 steps, K1 and K2 drawing spawns; one agent per live lane and finite
    rewards. Then 3x3 levels, where an action's four cells alias, for 64
-   lanes x 20 steps on the card against the port's CPU path.
+   lanes x 20 steps on the card against the port's CPU path, at 3x3 views
+   and at 25x25 views (larger than the board).
+4. The large-board path: generated 192x192 levels (spawners, goals that
+   evolve) through ``run_episodes`` at 64 lanes x 40 steps with the same
+   policy, counts zeroed just before and read just after; the global-memory
+   forms of all three kernels must have run. Then 16 lanes x 10 steps of
+   such levels without spawners (the card's and the CPU's generators draw
+   different seeds) on the card against the port's CPU path.
 
-Then it times each kernel and its plain version at the main path's shapes,
-holding their outputs there against each other too, and prints, before
-the last line, the card's name and power limit as ``nvidia-smi`` reports
-them and one ``{"kernels": [...]}`` JSON line. The last line is
-``{"ok": true, "device": {...}}``.
+Then it times each kernel form and its plain version at the shapes of the
+path that runs it (the main path's at B = 512 and 4096, the large-board
+path's at B = 64), holding their outputs there against each other too, and
+prints, before the last line, the card's name and power limit as
+``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -55,9 +68,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: (pack 20, neighbourhood sum and OR 8, rule 27), and an agent's action.
 CA_OPS_PER_CELL = 55
 ACTION_OPS_PER_AGENT = 60
-#: Operations of one view element (wrap, pack) and of one exit test there.
+#: Operations of one view element (wrap, pack), and of one exit of one view
+#: (its projection onto the view).
 VIEW_OPS_PER_ELEMENT = 10
-EXIT_OPS_PER_ELEMENT = 12
+EXIT_OPS_PER_VIEW = 12
 
 VIEW = (25, 25)
 LANES = 512
@@ -72,6 +86,13 @@ STEPS = 1000
 PHASE1_SHAPES = ((1, 4), (2, 5), (3, 3), (4, 4), (7, 13), (26, 26), (33, 40),
                  (96, 128))
 PHASE1_BATCHES = (1, 7, LANES, 4096)
+#: Boards above MAX_CELLS (the global-memory form of K1 and K2): square,
+#: far from square, and a power of two.
+LARGE_SHAPES = ((112, 112), (6, 2100), (128, 128))
+LARGE_BATCHES = (1, 7, 64)
+#: The large-board path: boards too large for any staged form (K3's too).
+LARGE_LEVEL = (192, 192)
+LARGE_LANES = 64
 
 
 def log(*args):
@@ -185,12 +206,33 @@ def max_err(pairs):
     return err
 
 
-def check_physics(dev, pool_boards, pool_locs):
+def compare(errs, kern, plain):
+    """Hold ``kern()`` (a wrapper call on the card) against ``plain()`` (its
+    plain version on the same inputs) and fold the error into ``errs``
+    under each kernel form the call launched; raises if it launched none.
+    Returns the forms."""
+    from safelife_tpu_torch import ops
+
+    before = ops.launch_counts()
+    got = kern()
+    after = ops.launch_counts()
+    forms = [k for k in after if after[k] > before[k]]
+    if not forms:
+        raise AssertionError("the wrapper launched no kernel")
+    ref = plain()
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    err = max_err(zip(got, ref))
+    for f in forms:
+        errs[f] = max(errs.get(f, 0), err)
+    return forms
+
+
+def check_physics(dev, errs, pool_boards, pool_locs):
     from safelife_tpu_torch.core import advance as ADV
     from safelife_tpu_torch.ops import physics as P
 
     rng = np.random.default_rng(1)
-    errs = {"fused_actions_advance": 0, "advance": 0}
     seed = torch.tensor([-1640531527, 1013904223], dtype=torch.int32,
                         device=dev)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
@@ -199,38 +241,48 @@ def check_physics(dev, pool_boards, pool_locs):
         b, h, w = board.shape
         args = (t(board.reshape(b, h * w)), t(locs), t(acts),
                 torch.full((b,), p, device=dev), seed)
-        got = P.fused_actions_advance(*args, h=h, w=w, stochastic=stochastic)
-        ref = P.fused_actions_advance_plain(*args, h=h, w=w,
-                                            stochastic=stochastic)
-        errs["fused_actions_advance"] = max(errs["fused_actions_advance"],
-                                            max_err(zip(got, ref)))
+        k = dict(h=h, w=w, stochastic=stochastic)
+        return compare(errs, lambda: P.fused_actions_advance(*args, **k),
+                       lambda: P.fused_actions_advance_plain(*args, **k))
 
     def run_k2(flat, h, w, p, stochastic):
         sp = torch.full((flat.shape[0],), p, device=dev)
-        got = P.advance(flat, sp, seed, h=h, w=w, stochastic=stochastic)
-        ref = P.advance_plain(flat, sp, seed, h=h, w=w, stochastic=stochastic)
-        errs["advance"] = max(errs["advance"], max_err([(got, ref)]))
+        k = dict(h=h, w=w, stochastic=stochastic)
+        return compare(errs, lambda: P.advance(flat, sp, seed, **k),
+                       lambda: P.advance_plain(flat, sp, seed, **k))
 
-    for h, w in PHASE1_SHAPES:
-        for b in PHASE1_BATCHES:
+    def run_shape(h, w, batches, probs):
+        forms = set()
+        for b in batches:
             # Three adjacent agents; A = 1 and 2 act with the first ones
             # while the others stay on the board as agent cells.
             board, locs = soup(rng, b, h, w, 3, spawners=True)
             acts = rng.integers(0, 9, (b, 3)).astype(np.int32)
             for a in (1, 2, 3):
-                run_k1(board, locs[:, :a], acts[:, :a], 0.3, False)
-                for p in (0.0, 0.3, 1.0):
-                    run_k1(board, locs[:, :a], acts[:, :a], p, True)
+                forms.update(run_k1(board, locs[:, :a], acts[:, :a], 0.3,
+                                    False))
+                for p in probs:
+                    forms.update(run_k1(board, locs[:, :a], acts[:, :a], p,
+                                        True))
             flat = t(board.reshape(b, h * w))
-            run_k2(flat, h, w, 0.0, False)
-            for p in (0.0, 0.3, 1.0):
-                run_k2(flat, h, w, p, True)
+            forms.update(run_k2(flat, h, w, 0.0, False))
+            for p in probs:
+                forms.update(run_k2(flat, h, w, p, True))
+        return sorted(forms)
+
+    for h, w in PHASE1_SHAPES:
+        forms = run_shape(h, w, PHASE1_BATCHES, (0.0, 0.3, 1.0))
         layouts = ", ".join(
             "B=%d: %d boards a block, %d rows a thread, %d threads, %d B "
             "shared" % ((b,) + P.launch_shape(h, w, b))
             for b in PHASE1_BATCHES)
         log("K1, K2 %dx%d (%s) x A in {1,2,3} x (deterministic, p in {0, "
-            "0.3, 1}): exact" % (h, w, layouts))
+            "0.3, 1}): %s exact" % (h, w, layouts, ", ".join(forms)))
+    for h, w in LARGE_SHAPES:
+        forms = run_shape(h, w, LARGE_BATCHES, (0.3, 1.0))
+        log("K1, K2 %dx%d (%d cells) x B in %s x A in {1,2,3} x "
+            "(deterministic, p in {0.3, 1}): %s exact"
+            % (h, w, h * w, LARGE_BATCHES, ", ".join(forms)))
 
     # Real level boards (prune-dynamic), tiled to B lanes.
     b = 4096
@@ -256,46 +308,54 @@ def check_physics(dev, pool_boards, pool_locs):
         raise AssertionError("K2 spawn fraction %.4f outside (0.25, 0.35)"
                              % frac)
     log("K2 spawn fraction at p=0.3 (26x26, B=4096): %.4f" % frac)
-    return errs
 
 
-def check_obs(dev):
+#: K3 cases of phase 1: (board shape, view shape, batch). Views larger
+#: than the board tile it; 192x192 lanes are too large to stage.
+OBS_CASES = (((26, 26), (25, 25), 4096), ((26, 26), (15, 15), 4096),
+             ((26, 26), (7, 9), 4096), ((3, 3), (25, 25), 4096),
+             ((10, 12), (15, 15), 4096), ((6, 6), (7, 6), 4096),
+             (LARGE_LEVEL, (25, 25), 64))
+
+
+def check_obs(dev, errs):
     from safelife_tpu_torch import ops
+    from safelife_tpu_torch.ops import obs as O
 
     rng = np.random.default_rng(2)
-    b, h, w = 4096, 26, 26
-    err = 0
-    for view in ((25, 25), (15, 15), (7, 9)):
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    for (h, w), view, b in OBS_CASES:
+        forms = set()
         for a in (1, 3):
             for e in (0, 1, 2):
-                t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
                 words = rng.integers(0, 2 ** 16, (2, b, h, w)).astype(np.int32)
                 args = (t(words[0]), t(words[1]),
                         t(rng.integers(0, h, (b, a)).astype(np.int32)),
                         t(rng.integers(0, w, (b, a)).astype(np.int32)),
-                        t(rng.integers(0, h, (b, e, 2)).astype(np.int32)),
+                        t(np.stack([rng.integers(0, h, (b, e)),
+                                    rng.integers(0, w, (b, e))],
+                                   -1).astype(np.int32)),
                         t(rng.random((b, e)) < 0.7))
                 for rw in (True, False):
-                    got = ops.recenter_views(*args, view_shape=view,
-                                             remove_white_goals=rw)
-                    ref = ops.recenter_views_plain(*args, view_shape=view,
-                                                   remove_white_goals=rw)
-                    err = max(err, max_err([(got, ref)]))
-    # 3x3 boards with a 3x3 view, the largest the board allows.
+                    k = dict(view_shape=view, remove_white_goals=rw)
+                    forms.update(compare(
+                        errs, lambda: ops.recenter_views(*args, **k),
+                        lambda: ops.recenter_views_plain(*args, **k)))
+        log("K3 view %s on %dx%d, B=%d (lanes a block, threads, shared "
+            "bytes at A=1: %s) x A in {1,3} x E in {0,1,2}: %s exact"
+            % (view, h, w, b, O.view_launch_shape(b, 1, h, w, *view),
+               ", ".join(sorted(forms))))
+    # 3x3 boards with a 3x3 view.
     b, h, w = 4096, 3, 3
-    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     words = rng.integers(0, 2 ** 16, (2, b, h, w)).astype(np.int32)
     args = (t(words[0]), t(words[1]),
             t(rng.integers(0, h, (b, 2)).astype(np.int32)),
             t(rng.integers(0, w, (b, 2)).astype(np.int32)),
             t(rng.integers(0, h, (b, 1, 2)).astype(np.int32)),
             t(rng.random((b, 1)) < 0.7))
-    got = ops.recenter_views(*args, view_shape=(3, 3))
-    ref = ops.recenter_views_plain(*args, view_shape=(3, 3))
-    err = max(err, max_err([(got, ref)]))
-    log("K3 views (25,25),(15,15),(7,9) x A {1,3} x E {0,1,2} on 26x26, "
-        "and (3,3) on 3x3: exact")
-    return err
+    compare(errs, lambda: ops.recenter_views(*args, view_shape=(3, 3)),
+            lambda: ops.recenter_views_plain(*args, view_shape=(3, 3)))
+    log("K3 view (3,3) on 3x3: exact")
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +399,10 @@ def run_main_path(dev, levels, net, card):
         raise AssertionError("benchmark returned %d records" % len(records))
     expected = {"fused_actions_advance": 2 * STEPS, "advance": 2 * STEPS,
                 "recenter_views": 2 * STEPS + 2}
+    for name in ("fused_actions_advance_global", "advance_global",
+                 "recenter_views_global"):
+        if launches[name]:
+            raise AssertionError("kernel %s ran on 26x26 boards" % name)
     for name, n in expected.items():
         if launches[name] == 0:
             raise AssertionError("kernel %s was never launched on the main "
@@ -462,14 +526,9 @@ def check_stochastic(dev, levels, net, lanes=64, steps=200):
         "lane, finite rewards, %d cells came alive" % (lanes, steps, spawned))
 
 
-def check_tiny_levels(dev, lanes=64, steps=20, n_levels=16):
-    """3x3 levels, where an action's four cells alias: the card's step_core
-    (K1, and K3 for the 3x3 views) against the port's CPU path, random
-    actions, boards, locations, rewards, done flags and views exact."""
-    from safelife_tpu_torch import ops
+def tiny_levels(n_levels=16):
+    """3x3 levels, where an action's four cells alias."""
     from safelife_tpu_torch.core import cells as C
-    from safelife_tpu_torch.env import env as E
-    from safelife_tpu_torch.env.state import pack_levels
     from safelife_tpu_torch.io.levels import level_from_data
 
     rng = np.random.default_rng(6)
@@ -485,15 +544,47 @@ def check_tiny_levels(dev, lanes=64, steps=20, n_levels=16):
         levels.append(level_from_data(dict(
             board=board, goals=goals.astype(np.int32),
             agent_locs=np.array([[1, 1]]))))
+    return levels
+
+
+def large_levels(n_levels=4, spawners=True):
+    """Generated LARGE_LEVEL levels with every cell flag, goals that evolve
+    (live goal cells), one agent, one exit and, if asked, spawners."""
+    from safelife_tpu_torch.core import cells as C
+    from safelife_tpu_torch.io.levels import level_from_data
+
+    rng = np.random.default_rng(7)
+    b, locs = soup(rng, n_levels, *LARGE_LEVEL, 1, spawners=spawners)
+    levels = []
+    for i in range(n_levels):
+        board = b[i] & ~C.EXIT
+        board[(locs[i, 0, 0] + 5) % LARGE_LEVEL[0], locs[i, 0, 1]] = C.EXIT
+        goals = ((rng.random(LARGE_LEVEL) < 0.1)
+                 * (rng.integers(1, 8, LARGE_LEVEL) << C.COLOR_BIT))
+        goals |= (rng.random(LARGE_LEVEL) < 0.05) * (C.ALIVE | C.COLOR_G)
+        levels.append(level_from_data(dict(
+            board=board, goals=goals.astype(np.int32), agent_locs=locs[i])))
+    return levels
+
+
+def check_levels_against_cpu(dev, levels, view, what, lanes=64, steps=20):
+    """The card's step_core and _batch_obs against the port's CPU path on
+    ``levels`` under random actions: boards, locations, rewards, done flags
+    and views exact. Returns the kernel forms the card's run launched."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+
+    rng = np.random.default_rng(6)
     acts = rng.integers(0, 9, (steps, lanes, 1)).astype(np.int32)
-    cfg = E.EnvConfig(view_shape=(3, 3), output_channels=None,
+    cfg = E.EnvConfig(view_shape=view, output_channels=None,
                       time_limit=steps, auto_reset=False)
-    before = ops.launch_counts()
-    runs = []
+    runs, launched = [], None
     for d in (dev, torch.device("cpu")):
+        before = ops.launch_counts()
         pool = pack_levels(levels, device=d)
         state = E.reset_batch(cfg, pool,
-                              torch.arange(lanes, device=d) % n_levels)
+                              torch.arange(lanes, device=d) % len(levels))
         gen = torch.Generator(device=d).manual_seed(0)
         out = []
         for t in range(steps):
@@ -503,22 +594,80 @@ def check_tiny_levels(dev, lanes=64, steps=20, n_levels=16):
             out.append([x.cpu() for x in (state.board, state.agent_locs,
                                           rew, done, obs)])
         runs.append(out)
-    after = ops.launch_counts()
-    if after["fused_actions_advance"] - before["fused_actions_advance"] \
-            != steps:
-        raise AssertionError("3x3 levels skipped K1")
+        if launched is None:
+            after = ops.launch_counts()
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] > before[k]}
+    if launched.get("fused_actions_advance", 0) \
+            + launched.get("fused_actions_advance_global", 0) != steps:
+        raise AssertionError("%s skipped K1" % what)
     moves = 0
     for t, (card, host) in enumerate(zip(*runs)):
-        for i, what in enumerate(("boards", "locations", "rewards", "done",
+        for i, name in enumerate(("boards", "locations", "rewards", "done",
                                   "views")):
             if not torch.equal(card[i], host[i]):
-                raise AssertionError("3x3 levels: %s differ at step %d"
-                                     % (what, t))
+                raise AssertionError("%s: %s differ at step %d"
+                                     % (what, name, t))
         if t:
             moves += int((card[1] != runs[0][t - 1][1]).any(-1).sum())
-    log("3x3 levels, %d lanes x %d steps: card equals the CPU path exactly "
-        "(boards, locations, rewards, done, 3x3 views); %d agent moves"
-        % (lanes, steps, moves))
+    log("%s, %d lanes x %d steps, %dx%d views: card equals the CPU path "
+        "exactly (boards, locations, rewards, done, views); %d agent moves; "
+        "launches %s" % (what, lanes, steps, view[0], view[1], moves,
+                         json.dumps(launched)))
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the large-board path
+
+
+#: The kernel forms the large-board path runs.
+LARGE_PATH_FORMS = ("fused_actions_advance_global", "advance_global",
+                    "recenter_views_global")
+
+
+def run_large_path(dev, levels, net, card, steps=40):
+    """``run_episodes`` on LARGE_LEVEL levels, counts zeroed just before and
+    read just after: each global-memory form must have run, and no staged
+    form of K1/K2."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import runner as R
+
+    pool = pack_levels(levels, device=dev)
+    if pool.all_goals_static or pool.spawner_free:
+        raise AssertionError("large levels must have spawners and goals "
+                             "that evolve")
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None,
+                      time_limit=steps)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    idx = torch.arange(LARGE_LANES, device=dev) % pool.num_levels
+    R.run_episodes(cfg, pool, net, idx, gen, 2)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = R.run_episodes(cfg, pool, net, idx, gen, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if out["final_board"].shape != (LARGE_LANES,) + LARGE_LEVEL:
+        raise AssertionError("final_board shape %s"
+                             % (tuple(out["final_board"].shape),))
+    if not torch.isfinite(out["episode_reward"]).all():
+        raise AssertionError("non-finite episode reward")
+    for name in LARGE_PATH_FORMS:
+        if launches[name] == 0:
+            raise AssertionError("kernel %s was never launched on the "
+                                 "large-board path" % name)
+    if launches["fused_actions_advance"] or launches["advance"]:
+        raise AssertionError("a staged K1/K2 ran on boards above MAX_CELLS")
+    log("large-board path: run_episodes %d lanes x %d steps of %dx%d levels "
+        "in %.3f s = %.0f env-steps/s; launches %s  [%s]"
+        % (LARGE_LANES, steps, LARGE_LEVEL[0], LARGE_LEVEL[1], elapsed,
+           LARGE_LANES * steps / elapsed, json.dumps(launches), card))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -572,10 +721,28 @@ def bound(nbytes, nops):
     return max(t_bytes, t_ops), by, t_bytes, t_ops
 
 
+def covered_cells(h, w, cy, cx, exit_locs, exit_valid, view):
+    """Board cells that the views and the valid exits of all lanes cover,
+    summed over lanes: what K3 must read of the boards, and as much of the
+    goals."""
+    b = cy.shape[0]
+    vh, vw = view
+    dev = cy.device
+    rows = (cy[..., None] - vh // 2 + torch.arange(vh, device=dev)) % h
+    cols = (cx[..., None] - vw // 2 + torch.arange(vw, device=dev)) % w
+    idx = (rows[..., :, None] * w + cols[..., None, :]).reshape(b, -1)
+    hit = torch.zeros((b, h * w), dtype=torch.int32, device=dev)
+    hit.scatter_(1, idx.long(), 1)
+    hit.scatter_reduce_(1, (exit_locs[..., 0] * w + exit_locs[..., 1]).long(),
+                        exit_valid.to(torch.int32), "amax")
+    return int(hit.sum())
+
+
 def time_kernels(dev, pool, b):
-    """Time each kernel and its plain version at the main path's shapes
-    (prune-dynamic boards, one agent, one exit, 25x25 views) for b lanes,
-    and hold their outputs on these inputs against each other."""
+    """Time each kernel and its plain version at the shapes of ``pool``'s
+    levels (one agent, their exits, 25x25 views) for b lanes, and hold
+    their outputs on these inputs against each other. Keyed by the kernel
+    form each wrapper launched there."""
     from safelife_tpu_torch import ops
     from safelife_tpu_torch.env import env as E
 
@@ -601,44 +768,36 @@ def time_kernels(dev, pool, b):
     vh, vw = VIEW
 
     k1 = dict(h=h, w=w, stochastic=False)
-    cases = {
-        "fused_actions_advance": (
-            "physics_kernel",
-            lambda: ops.fused_actions_advance(flat, locs, acts, sp, seed,
-                                              **k1),
-            lambda: ops.fused_actions_advance_plain(flat, locs, acts, sp,
-                                                    seed, **k1),
-            2 * b * hw * 4 + b * a * (2 * 2 * 4 + 4 + 4) + b * 4 + 8,
-            b * hw * CA_OPS_PER_CELL + b * a * ACTION_OPS_PER_AGENT),
-        "advance": (
-            "advance_kernel",
-            lambda: ops.advance(goals, sp, seed, **k1),
-            lambda: ops.advance_plain(goals, sp, seed, **k1),
-            2 * b * hw * 4 + b * 4 + 8,
-            b * hw * CA_OPS_PER_CELL),
-        "recenter_views": (
-            "recenter_kernel",
-            lambda: ops.recenter_views(state.board, state.goals, cy, cx, el,
-                                       ev, view_shape=VIEW),
-            lambda: ops.recenter_views_plain(state.board, state.goals, cy,
-                                             cx, el, ev, view_shape=VIEW),
-            2 * b * hw * 4 + 2 * b * a * 4 + b * e * 9 + b * a * vh * vw * 4,
-            b * a * vh * vw * (VIEW_OPS_PER_ELEMENT
-                               + e * EXIT_OPS_PER_ELEMENT)),
-    }
+    cases = (
+        (lambda: ops.fused_actions_advance(flat, locs, acts, sp, seed, **k1),
+         lambda: ops.fused_actions_advance_plain(flat, locs, acts, sp, seed,
+                                                 **k1),
+         2 * b * hw * 4 + b * a * (2 * 2 * 4 + 4 + 4) + b * 4 + 8,
+         b * hw * CA_OPS_PER_CELL + b * a * ACTION_OPS_PER_AGENT),
+        (lambda: ops.advance(goals, sp, seed, **k1),
+         lambda: ops.advance_plain(goals, sp, seed, **k1),
+         2 * b * hw * 4 + b * 4 + 8,
+         b * hw * CA_OPS_PER_CELL),
+        (lambda: ops.recenter_views(state.board, state.goals, cy, cx, el, ev,
+                                    view_shape=VIEW),
+         lambda: ops.recenter_views_plain(state.board, state.goals, cy, cx,
+                                          el, ev, view_shape=VIEW),
+         2 * covered_cells(h, w, cy, cx, el, ev, VIEW) * 4 + 2 * b * a * 4
+         + b * e * 9 + b * a * vh * vw * 4,
+         b * a * (vh * vw * VIEW_OPS_PER_ELEMENT + e * EXIT_OPS_PER_VIEW)),
+    )
     out = {}
-    for name, (kname, kern, plain, nbytes, nops) in cases.items():
-        ms, how = device_ms(kern, kname)
+    for kern, plain, nbytes, nops in cases:
+        errs = {}
+        (form,) = compare(errs, kern, plain)
+        ms, how = device_ms(kern, KERNELS[form][2])
         call_ms = events_ms(kern)
         plain_ms = events_ms(plain)
         bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, nops)
-        got, ref = kern(), plain()
-        if not isinstance(got, tuple):
-            got, ref = (got,), (ref,)
-        out[name] = dict(ms=ms, timed_by=how, call_ms=call_ms,
+        out[form] = dict(ms=ms, timed_by=how, call_ms=call_ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                         err=max_err(zip(got, ref)))
+                         err=errs[form], batch=b)
     return out
 
 
@@ -702,13 +861,25 @@ def profile_rollout(dev, pool, net, lanes, steps=50):
 # ---------------------------------------------------------------------------
 
 
+#: Kernel form -> (source, the TPU kernel it replaces, its kernel's name in
+#: the profiler).
 KERNELS = {
     "fused_actions_advance": ("safelife_tpu_torch/ops/csrc/physics.cu",
-                              "safelife_tpu/ops/physics.py:296"),
+                              "safelife_tpu/ops/physics.py:296",
+                              "physics_kernel"),
+    "fused_actions_advance_global": (
+        "safelife_tpu_torch/ops/csrc/physics.cu",
+        "safelife_tpu/ops/physics.py:296", "physics_global_kernel"),
     "advance": ("safelife_tpu_torch/ops/csrc/advance.cu",
-                "safelife_tpu/ops/physics.py:371"),
+                "safelife_tpu/ops/physics.py:371", "advance_kernel"),
+    "advance_global": ("safelife_tpu_torch/ops/csrc/advance.cu",
+                       "safelife_tpu/ops/physics.py:371",
+                       "advance_global_kernel"),
     "recenter_views": ("safelife_tpu_torch/ops/csrc/obs.cu",
-                       "safelife_tpu/ops/obs.py:146"),
+                       "safelife_tpu/ops/obs.py:146", "recenter_kernel"),
+    "recenter_views_global": ("safelife_tpu_torch/ops/csrc/obs.cu",
+                              "safelife_tpu/ops/obs.py:146",
+                              "recenter_global_kernel"),
 }
 
 
@@ -732,7 +903,7 @@ def main():
     log("kernels built in %.1f s" % (time.perf_counter() - t0))
     for source, text in _build.build_logs().items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  %s: %s" % (source, line.strip()))
 
     prune = load_levels("benchmarks/v1.0/prune-dynamic.npz")
@@ -741,10 +912,13 @@ def main():
         raise AssertionError("expected 100 levels per archive")
 
     # Phase 1
-    errs = check_physics(dev, np.stack([lv.board for lv in prune]),
-                         np.stack([lv.agent_locs for lv in prune]
-                                  ).astype(np.int32))
-    errs["recenter_views"] = check_obs(dev)
+    errs = {}
+    check_physics(dev, errs, np.stack([lv.board for lv in prune]),
+                  np.stack([lv.agent_locs for lv in prune]).astype(np.int32))
+    check_obs(dev, errs)
+    missing = sorted(set(KERNELS) - set(errs))
+    if missing:
+        raise AssertionError("phase 1 never ran %s" % missing)
 
     # Phase 2
     from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
@@ -757,21 +931,34 @@ def main():
 
     # Phase 3
     check_stochastic(dev, nav, net)
-    check_tiny_levels(dev)
+    tiny = tiny_levels()
+    check_levels_against_cpu(dev, tiny, (3, 3), "3x3 levels")
+    check_levels_against_cpu(dev, tiny, VIEW, "3x3 levels")
 
-    # Timings at the main path's shapes (B = 512) and at B = 4096.
+    # Phase 4
+    large = large_levels()
+    large_launches = run_large_path(dev, large, net, card)
+    # Without spawners: the card's and the CPU's generators draw different
+    # seed words (phase 1 holds the spawn draws under one seed).
+    check_levels_against_cpu(dev, large_levels(spawners=False), VIEW,
+                             "%dx%d levels without spawners" % LARGE_LEVEL,
+                             lanes=16, steps=10)
+
+    # Timings at the main path's shapes (B = 512 and 4096) and at the
+    # large-board path's.
     from safelife_tpu_torch.env.state import pack_levels
 
     pool = pack_levels(prune, device=dev)
     times = time_kernels(dev, pool, LANES)
     times_4096 = time_kernels(dev, pool, 4096)
-    for name in KERNELS:
-        for b, tt in ((LANES, times), (4096, times_4096)):
-            t = tt[name]
-            log("timing %-22s B=%-4d kernel %.5f ms (%s; %.5f ms a call "
+    times_large = time_kernels(dev, pack_levels(large, device=dev),
+                               LARGE_LANES)
+    for tt in (times, times_4096, times_large):
+        for name, t in tt.items():
+            log("timing %-28s B=%-4d kernel %.5f ms (%s; %.5f ms a call "
                 "with the wrapper), plain %.5f ms, bound %.5f ms (%s; bytes "
                 "%.5f, operations %.5f)  [%s]"
-                % (name, b, t["ms"], t["timed_by"], t["call_ms"],
+                % (name, t["batch"], t["ms"], t["timed_by"], t["call_ms"],
                    t["plain_ms"], t["bound_ms"], t["bound_by"],
                    t["bytes_ms"], t["ops_ms"], card))
     log("rollout at 512 lanes x 200 steps: %.0f env-steps/s  [%s]"
@@ -785,11 +972,14 @@ def main():
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        t = times[name]
+    timed = {**times_large, **times}
+    for name, (source, replaces, _) in KERNELS.items():
+        t = timed[name]
+        # Each form's launches on the path that runs it.
+        path = large_launches if name in LARGE_PATH_FORMS else launches
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path[name],
             "max_abs_err": max(errs[name], t["err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -1,10 +1,11 @@
-"""K1 and K2 over their block layouts, and the host cost of a kernel call,
-on one CUDA card.
+"""The kernels over their block layouts, and the host cost of a kernel
+call, on one CUDA card.
 
-    python3 chip_sweep.py
+    python3 chip_sweep.py [physics] [views] [host]
 
-from the root of a checkout, on a host with a CUDA card and ``nvcc``. It
-imports torch and the port only, and prints two things for 26x26
+from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
+argument runs all three parts). It imports torch and the port only, prints
+the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
 * At B = 512 and 4096, the profiler's device time per launch of both
@@ -14,6 +15,14 @@ prune-dynamic boards:
   through the wrappers (``ops.physics.launch_shape`` is swapped for the
   layout, threads from ``ops.physics.block_threads``) and is checked
   against the plain version bit for bit.
+* ``views``: at B = 512 and 4096, the profiler's device time per launch of
+  K3 (one agent, one exit, 25x25 views) for every lanes-per-block count of
+  ``ops.obs.LANES_PER_BLOCK`` and 4, 8 or 16 elements a thread, through the
+  wrapper (``ops.obs.view_launch_shape`` swapped for the layout), each
+  checked against the plain version bit for bit, beside the layout the
+  wrapper picks; and the time of a device-to-device ``Tensor.copy_`` that
+  moves as many bytes as K3 must (half read, half written), the
+  achievable-bandwidth yardstick (not a port of the function).
 * At B = 512, the host time of one wrapper call and of the parts of the
   launch path, in microseconds a call over 2000 calls.
 """
@@ -28,10 +37,12 @@ import torch
 import chip_smoke as cs
 from safelife_tpu_torch.env.state import pack_levels
 from safelife_tpu_torch.io.levels import load_levels
-from safelife_tpu_torch.ops import _build, physics as P
+from safelife_tpu_torch.env import env as E
+from safelife_tpu_torch.ops import _build, obs as O, physics as P
 
 BOARDS_PER_BLOCK = (1, 2, 4, 6, 8)
 ROWS_PER_THREAD = (26, 13, 9, 7, 5, 4)
+ELEMENTS_PER_THREAD = (4, 8, 16)
 
 
 @contextlib.contextmanager
@@ -95,6 +106,64 @@ def sweep(dev, pool, card):
                          t1), flush=True)
 
 
+@contextlib.contextmanager
+def view_layout(lanes, per_thread):
+    """Launch K3 with ``lanes`` lanes a block and a thread for each
+    ``per_thread`` elements while the context is open."""
+    picked = O.view_launch_shape
+
+    def forced(batch, a, h, w, vh, vw):
+        return (lanes, O.view_block_threads(lanes, a, h, w, vh, vw,
+                                            per_thread),
+                O.view_smem_bytes(lanes, a, h, w, vh, vw))
+
+    O.view_launch_shape = forced
+    try:
+        yield
+    finally:
+        O.view_launch_shape = picked
+
+
+def sweep_views(dev, pool, card):
+    h, w = pool.board_shape
+    cfg = E.EnvConfig(view_shape=cs.VIEW, output_channels=None)
+    vh, vw = cs.VIEW
+    for b in (cs.LANES, 4096):
+        idx = torch.arange(b, device=dev) % pool.num_levels
+        state = E.reset_batch(cfg, pool, idx)
+        locs = state.agent_locs
+        args = (state.board, state.goals, locs[..., 0].contiguous(),
+                locs[..., 1].contiguous(),
+                pool.exit_locs.index_select(0, idx),
+                pool.exit_locs_valid.index_select(0, idx))
+        a, e = locs.shape[1], args[4].shape[1]
+        ref = O.recenter_views_plain(*args, view_shape=cs.VIEW)
+        print("B=%d: view_launch_shape picks %d lanes a block, %d threads, "
+              "%d B shared  [%s]" % ((b,) + O.view_launch_shape(
+                  b, a, h, w, vh, vw) + (card,)), flush=True)
+        for lanes in O.LANES_PER_BLOCK:
+            for per in ELEMENTS_PER_THREAD:
+                with view_layout(lanes, per):
+                    t = cs.device_ms(
+                        lambda: O.recenter_views(*args, view_shape=cs.VIEW),
+                        "recenter_kernel")[0]
+                    got = O.recenter_views(*args, view_shape=cs.VIEW)
+                cs.max_err([(got, ref)])
+                print("B=%d lanes/block=%d elements/thread=%d threads=%d: "
+                      "K3 %.5f ms, exact" % (
+                          b, lanes, per, O.view_block_threads(
+                              lanes, a, h, w, vh, vw, per), t), flush=True)
+        nbytes = (2 * cs.covered_cells(h, w, *args[2:], cs.VIEW) * 4
+                  + 2 * b * a * 4 + b * e * 9 + b * a * vh * vw * 4)
+        src = torch.zeros(nbytes // 8, dtype=torch.int32, device=dev)
+        dst = torch.empty_like(src)
+        t, how = cs.device_ms(lambda: dst.copy_(src), "Memcpy")
+        print("B=%d: yardstick, device-to-device copy_ of %d bytes (moves "
+              "%d, K3's count): %.5f ms (%s), %.1f GB/s  [%s]"
+              % (b, 4 * src.numel(), 8 * src.numel(), t, how,
+                 8 * src.numel() / t / 1e6, card), flush=True)
+
+
 def host_cost(dev, pool, n=2000):
     """Host time of one kernel call through its wrapper at B = 512, and of
     the parts of the launch path, in microseconds a call over n calls on
@@ -137,16 +206,26 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
+    parts = sys.argv[1:] or ["physics", "views", "host"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
+    for source, text in _build.build_logs().items():
+        for line in text.splitlines():
+            if "Compiling" in line or "registers" in line or "spill" in line:
+                print("%s: %s" % (source, line.strip()), flush=True)
     pool = pack_levels(load_levels("benchmarks/v1.0/prune-dynamic.npz"),
                        device=dev)
-    sweep(dev, pool, card)
-    host = host_cost(dev, pool)
-    print("host time a call at B=%d (us): %s  [%s]"
-          % (cs.LANES, json.dumps({k: round(v, 3) for k, v in host.items()}),
-             card), flush=True)
+    if "physics" in parts:
+        sweep(dev, pool, card)
+    if "views" in parts:
+        sweep_views(dev, pool, card)
+    if "host" in parts:
+        host = host_cost(dev, pool)
+        print("host time a call at B=%d (us): %s  [%s]"
+              % (cs.LANES, json.dumps({k: round(v, 3)
+                                       for k, v in host.items()}), card),
+              flush=True)
     return 0
 
 

@@ -8,8 +8,12 @@ These replace the three Pallas kernels of ``safelife_tpu/ops/``:
 
 A wrapper launches its kernel for CUDA tensors (building ``csrc/`` at first
 use, see :mod:`._build`) and runs its ``*_plain`` version for CPU tensors.
+Each kernel has two forms in its source, chosen by shape: the staged one,
+which works out of shared memory, and a global-memory one (``*_global``)
+for boards (and, for K3, views) too large to stage.
 """
 
+from . import _build
 from .obs import recenter_views, recenter_views_plain  # noqa: F401
 from .physics import (  # noqa: F401
     advance,
@@ -18,18 +22,13 @@ from .physics import (  # noqa: F401
     fused_actions_advance_plain,
 )
 
-#: The kernel wrappers, by name; each counts its launches in ``.launches``.
-KERNEL_WRAPPERS = {
-    "fused_actions_advance": fused_actions_advance,
-    "advance": advance,
-    "recenter_views": recenter_views,
-}
-
 
 def reset_launch_counts():
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Launches of each kernel form since the last reset, by name
+    (``fused_actions_advance``, ``fused_actions_advance_global``, …)."""
+    return dict(_build.LAUNCHES)

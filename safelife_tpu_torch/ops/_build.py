@@ -28,13 +28,28 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: source file -> (C entry point, its argument types)
+#: source file -> {C entry point: its argument types}. Each entry point
+#: launches one kernel form (the staged one, or the global-memory one for
+#: shapes too large to stage); each source also has ``<first entry>_error``.
 KERNELS = {
-    "advance.cu": ("sl_advance", [_P] * 4 + [_I] * 7 + [_P]),
-    "physics.cu": ("sl_fused_actions_advance", [_P] * 8 + [_I] * 8 + [_P]),
-    "obs.cu": ("sl_recenter_views", [_P] * 7 + [_I] * 8 + [_P]),
+    "advance.cu": {
+        "sl_advance": [_P] * 4 + [_I] * 7 + [_P],
+        "sl_advance_global": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "physics.cu": {
+        "sl_fused_actions_advance": [_P] * 8 + [_I] * 8 + [_P],
+        "sl_fused_actions_advance_global": [_P] * 9 + [_I] * 6 + [_P],
+    },
+    "obs.cu": {
+        "sl_recenter_views": [_P] * 7 + [_I] * 10 + [_P],
+        "sl_recenter_views_global": [_P] * 7 + [_I] * 9 + [_P],
+    },
 }
 _HEADERS = ("ca.cuh",)
+
+#: Kernel launches by kernel form (the entry point without ``sl_``),
+#: counted by :func:`launch` after each launch the runtime accepted.
+LAUNCHES = {entry[3:]: 0 for entries in KERNELS.values() for entry in entries}
 
 
 def nvcc_path():
@@ -92,16 +107,17 @@ def kernels():
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
 
     fns = {}
-    for source, (entry, argtypes) in KERNELS.items():
+    for source, entries in KERNELS.items():
         lib = ctypes.CDLL(_library_path(source))
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, entry + "_error")
+        err = getattr(lib, next(iter(entries)) + "_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        fns[entry] = fn
-        fns[entry + "_error"] = err
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+            fns[entry + "_error"] = err
     return types.SimpleNamespace(**fns)
 
 
@@ -119,7 +135,8 @@ def build_logs():
 
 def launch(entry, device, *args):
     """Call a kernel's C entry point on ``device`` and PyTorch's current
-    stream there; raises if the launch was refused.
+    stream there, and count the launch in :data:`LAUNCHES`; raises if the
+    launch was refused.
 
     The CUDA runtime launches on the calling thread's current device, so
     the call switches to ``device`` only when that is another one."""
@@ -134,3 +151,4 @@ def launch(entry, device, *args):
         msg = getattr(kernels(), entry + "_error")(code).decode()
         raise RuntimeError("%s launch failed: CUDA error %d (%s)"
                            % (entry, code, msg))
+    LAUNCHES[entry[3:]] += 1

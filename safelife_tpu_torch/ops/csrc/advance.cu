@@ -39,6 +39,24 @@ __global__ void __launch_bounds__(1024)
   store_out(out + (size_t)lane0 * hw, s, nb * hw);
 }
 
+// Grid: x over the cells of a board, y over the lanes (looping when the
+// batch exceeds the grid's 65,535 rows).
+__global__ void __launch_bounds__(256)
+    advance_global_kernel(const int* __restrict__ board,
+                          const float* __restrict__ spawn_prob,
+                          const int* __restrict__ seed,
+                          int* __restrict__ out, int batch, int h, int w,
+                          int stochastic) {
+  const size_t hw = (size_t)h * w;
+  const bool st = stochastic != 0;
+  for (int lane = blockIdx.y; lane < batch; lane += gridDim.y) {
+    ca_cells_global(board + lane * hw, out + lane * hw, h, w,
+                    blockIdx.x * blockDim.x + threadIdx.x,
+                    gridDim.x * blockDim.x, lane, st, (uint32_t)seed[0],
+                    (uint32_t)seed[1], st ? spawn_prob[lane] : 0.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" int sl_advance(const void* board, const void* spawn_prob,
@@ -57,6 +75,19 @@ extern "C" int sl_advance(const void* board, const void* spawn_prob,
   advance_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const int*)board, (const float*)spawn_prob, (const int*)seed,
       (int*)out, batch, h, w, boards_per_block, rows_per_thread, stochastic);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sl_advance_global(const void* board, const void* spawn_prob,
+                                 const void* seed, void* out, int batch,
+                                 int h, int w, int threads, int stochastic,
+                                 void* stream) {
+  if (batch == 0) return 0;
+  const dim3 grid((h * w + threads - 1) / threads,
+                  batch < 65535 ? batch : 65535);
+  advance_global_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)board, (const float*)spawn_prob, (const int*)seed,
+      (int*)out, batch, h, w, stochastic);
   return (int)cudaGetLastError();
 }
 

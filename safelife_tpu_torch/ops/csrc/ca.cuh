@@ -26,6 +26,9 @@
 //   that columns fill warps; the boards of one block are contiguous in
 //   device memory and are staged with asynchronous 16-byte copies
 //   (`stage_in`) and stored with 16-byte stores (`store_out`).
+//
+// Boards too large for a block's shared memory take `ca_cells_global`
+// instead: one thread a cell, its neighbourhood read from device memory.
 #pragma once
 
 #include <stdint.h>
@@ -146,13 +149,15 @@ __device__ __forceinline__ int ca_rule(int v, uint32_t sum, uint32_t orw,
   return v;
 }
 
-// Copies n ints from device to shared memory with all of the block's
-// threads: asynchronous 16-byte copies (`cp.async`, no register staging, all
-// in flight at once) where both addresses are 16-byte aligned (the
-// wrapper's block sizes make them so for the usual boards), one int at a
-// time for the tail or otherwise. The caller synchronises the block after.
-__device__ __forceinline__ void stage_in(int* __restrict__ dst,
-                                         const int* __restrict__ src, int n) {
+// Starts copying n ints from device to shared memory with all of the
+// block's threads: asynchronous 16-byte copies (`cp.async`, no register
+// staging, all in flight at once) where both addresses are 16-byte aligned
+// (the wrapper's block sizes make them so for the usual boards), one int at
+// a time for the tail or otherwise. The copies are complete after
+// `stage_wait` and a barrier.
+__device__ __forceinline__ void stage_async(int* __restrict__ dst,
+                                            const int* __restrict__ src,
+                                            int n) {
   int done = 0;
   if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0) {
     const int n4 = n >> 2;
@@ -165,7 +170,17 @@ __device__ __forceinline__ void stage_in(int* __restrict__ dst,
     done = n4 << 2;
   }
   for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// `stage_async` then `stage_wait`. The caller synchronises the block after.
+__device__ __forceinline__ void stage_in(int* __restrict__ dst,
+                                         const int* __restrict__ src, int n) {
+  stage_async(dst, src, n);
+  stage_wait();
 }
 
 // Copies n ints from shared to device memory with all of the block's
@@ -244,6 +259,37 @@ __device__ __forceinline__ void ca_step_block(
     }
   }
   __syncthreads();
+}
+
+// The global-memory form of the CA step, for boards too large to stage
+// (above MAX_CELLS of ops/physics.py): cells first, first + stride, ... of
+// the h x w board `src` of batch lane `lane`, each read with its 3x3
+// neighbourhood straight from device memory, every neighbour packed as it
+// is read, into `dst`. `src` is not __restrict__: K1 writes it earlier in
+// the same kernel.
+__device__ __forceinline__ void ca_cells_global(
+    const int* src, int* __restrict__ dst, int h, int w, int first,
+    int stride, int lane, bool stochastic, uint32_t k0, uint32_t k1,
+    float prob) {
+  const int hw = h * w;
+  for (int i = first; i < hw; i += stride) {
+    const int y = i / w;
+    const int x = i - y * w;
+    const int xm = x == 0 ? w - 1 : x - 1;
+    const int xp = x == w - 1 ? 0 : x + 1;
+    const int rows[3] = {(y == 0 ? h - 1 : y - 1) * w, y * w,
+                         (y + 1 == h ? 0 : y + 1) * w};
+    uint32_t sum = 0, orw = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint32_t a = pack_cell(src[rows[k] + xm]);
+      const uint32_t c = pack_cell(src[rows[k] + x]);
+      const uint32_t d = pack_cell(src[rows[k] + xp]);
+      sum += a + c + d;
+      orw |= a | c | d;
+    }
+    dst[i] = ca_rule(src[i], sum, orw, i, lane, stochastic, k0, k1, prob);
+  }
 }
 
 }  // namespace sl

@@ -22,6 +22,10 @@
 // are distinct and the result equals the four-cell form. Coordinates are
 // reduced to the board once an agent; its neighbours wrap by compare and
 // add. After the CA step the same thread reads its agents' new cells.
+//
+// Boards above MAX_CELLS (ops/physics.py) do not fit a block's shared
+// memory and take `physics_global_kernel`: the same action code on a
+// device-memory copy of the board, then `ca_cells_global` of ca.cuh.
 #include <cuda_runtime.h>
 
 #include "ca.cuh"
@@ -90,6 +94,31 @@ __device__ void apply_action(int* s, int h, int w, int act, int ly, int lx,
   *new_x = x1;
 }
 
+// The agents of one board in order: agent k of the board whose first agent
+// is `first` in the batch acts on the board `s` (shared or device memory).
+__device__ void apply_actions(int* s, int h, int w, size_t first,
+                              int n_agents, const int* __restrict__ actions,
+                              const int* __restrict__ locs,
+                              int* __restrict__ out_locs) {
+  for (int k = 0; k < n_agents; ++k) {
+    const size_t j = first + k;
+    apply_action(s, h, w, actions[j], locs[2 * j], locs[2 * j + 1],
+                 &out_locs[2 * j], &out_locs[2 * j + 1]);
+  }
+}
+
+// Each agent's cell of the advanced board `s`, at the location the same
+// thread wrote in `apply_actions` (its own writes are visible to it).
+__device__ void read_cells(const int* s, int hw, int w, size_t first,
+                           int n_agents, const int* out_locs,
+                           int* __restrict__ out_cells) {
+  for (int k = 0; k < n_agents; ++k) {
+    const size_t j = first + k;
+    const int idx = out_locs[2 * j] * w + out_locs[2 * j + 1];
+    out_cells[j] = (idx >= 0 && idx < hw) ? s[idx] : 0;
+  }
+}
+
 __global__ void __launch_bounds__(1024)
     physics_kernel(const int* __restrict__ board,
                    const int* __restrict__ locs,
@@ -113,29 +142,53 @@ __global__ void __launch_bounds__(1024)
   // One thread a board: its agents in order, then (below) their cells.
   const int b = threadIdx.x;
   const size_t first = (size_t)(lane0 + b) * n_agents;
-  if (b < nb) {
-    int* sb = s + b * hw;
-    for (int k = 0; k < n_agents; ++k) {
-      apply_action(sb, h, w, actions[first + k], locs[2 * (first + k)],
-                   locs[2 * (first + k) + 1], &out_locs[2 * (first + k)],
-                   &out_locs[2 * (first + k) + 1]);
-    }
-  }
+  if (b < nb)
+    apply_actions(s + b * hw, h, w, first, n_agents, actions, locs, out_locs);
   __syncthreads();
 
   ca_step_block(s, q, nb, h, w, rows_per_thread, lane0, stochastic != 0,
                 (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob);
 
-  if (b < nb) {
-    const int* sb = s + b * hw;
-    for (int k = 0; k < n_agents; ++k) {
-      // This thread wrote out_locs above; its own writes are visible.
-      const int idx = out_locs[2 * (first + k)] * w +
-                      out_locs[2 * (first + k) + 1];
-      out_cells[first + k] = (idx >= 0 && idx < hw) ? sb[idx] : 0;
-    }
-  }
+  if (b < nb) read_cells(s + b * hw, hw, w, first, n_agents, out_locs,
+                         out_cells);
   store_out(out_board + (size_t)lane0 * hw, s, nb * hw);
+}
+
+// The global-memory form, for boards above MAX_CELLS: one block a board.
+// The block copies its board to `scratch`, one thread applies the agents
+// there, the block runs the CA step from `scratch` into `out_board`
+// (`ca_cells_global`), and the same thread reads the agents' cells. The
+// barriers make each phase's device-memory writes visible to the next.
+__global__ void __launch_bounds__(1024)
+    physics_global_kernel(const int* __restrict__ board,
+                          const int* __restrict__ locs,
+                          const int* __restrict__ actions,
+                          const float* __restrict__ spawn_prob,
+                          const int* __restrict__ seed, int* scratch,
+                          int* out_board, int* __restrict__ out_locs,
+                          int* __restrict__ out_cells, int h, int w,
+                          int n_agents, int stochastic) {
+  const int lane = blockIdx.x;
+  const int hw = h * w;
+  const int* src = board + (size_t)lane * hw;
+  int* tmp = scratch + (size_t)lane * hw;
+  int* dst = out_board + (size_t)lane * hw;
+  for (int i = threadIdx.x; i < hw; i += blockDim.x) tmp[i] = src[i];
+  __syncthreads();
+
+  const size_t first = (size_t)lane * n_agents;
+  if (threadIdx.x == 0)
+    apply_actions(tmp, h, w, first, n_agents, actions, locs, out_locs);
+  __syncthreads();
+
+  const bool st = stochastic != 0;
+  ca_cells_global(tmp, dst, h, w, threadIdx.x, blockDim.x, lane, st,
+                  (uint32_t)seed[0], (uint32_t)seed[1],
+                  st ? spawn_prob[lane] : 0.0f);
+  __syncthreads();
+
+  if (threadIdx.x == 0)
+    read_cells(dst, hw, w, first, n_agents, out_locs, out_cells);
 }
 
 }  // namespace
@@ -160,6 +213,20 @@ extern "C" int sl_fused_actions_advance(
       (const float*)spawn_prob, (const int*)seed, (int*)out_board,
       (int*)out_locs, (int*)out_cells, batch, h, w, n_agents,
       boards_per_block, rows_per_thread, stochastic);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sl_fused_actions_advance_global(
+    const void* board, const void* locs, const void* actions,
+    const void* spawn_prob, const void* seed, void* scratch, void* out_board,
+    void* out_locs, void* out_cells, int batch, int h, int w, int n_agents,
+    int threads, int stochastic, void* stream) {
+  if (batch == 0) return 0;
+  physics_global_kernel<<<batch, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)board, (const int*)locs, (const int*)actions,
+      (const float*)spawn_prob, (const int*)seed, (int*)scratch,
+      (int*)out_board, (int*)out_locs, (int*)out_cells, h, w, n_agents,
+      stochastic);
   return (int)cudaGetLastError();
 }
 

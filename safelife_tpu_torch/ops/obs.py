@@ -11,17 +11,77 @@ onto the view's perimeter in exit order, later exits winning (reference
 ``get_obs_batch`` does. The uint8 channel unpack stays separate
 (``env.unpack_view_channels``).
 
-The wrapper launches the kernel for CUDA tensors and runs
-:func:`recenter_views_plain` for CPU tensors; ``recenter_views.launches``
-counts kernel launches. Views larger than the board, which the JAX
-package tiles on its XLA path, are refused on both.
+Views larger than the board tile it, as the JAX package's XLA path
+(``safelife_tpu/env/env.py:168-173``, ``get_obs_batch``) does.
+
+The wrapper launches a kernel for CUDA tensors and runs
+:func:`recenter_views_plain` for CPU tensors. On CUDA,
+:func:`view_launch_shape` picks the staged form (a block gathers the views
+of a few lanes out of shared memory) or, for lanes too large to stage, the
+global-memory form. :mod:`._build` counts the launches of each.
 """
+
+import functools
 
 import torch
 
 from ..core import cells as C
 from . import _build
-from .physics import _require
+from .physics import MAX_SMEM_BYTES, _require
+
+#: View elements (or board cells) a thread of the staged form takes, which
+#: sizes its block.
+ELEMENTS_PER_THREAD = 8
+#: Lanes a staged block may take, and the fewest blocks a batch should
+#: give: about two to each of the H100's 132 SMs. Both are the best of the
+#: layout sweep at B = 512 and 4096 (``chip_sweep.py views``, PERF.md,
+#: PR 3).
+LANES_PER_BLOCK = (1, 2, 4, 8, 16)
+_TARGET_BLOCKS = 256
+#: Threads a block of the global-memory form.
+GLOBAL_THREADS = 256
+_INT32_MAX = 2 ** 31 - 1
+
+
+def view_smem_bytes(lanes, a, h, w, vh, vw):
+    """Shared bytes of a staged K3 block of ``lanes`` lanes: the boards
+    (padded to 16 bytes), the goals, and a row-offset and a column table a
+    view (``csrc/obs.cu::view_smem_words``)."""
+    cells = lanes * h * w
+    return 4 * (-(-cells // 4) * 4 + cells + lanes * a * (vh + vw))
+
+
+def view_block_threads(lanes, a, h, w, vh, vw,
+                       per_thread=ELEMENTS_PER_THREAD):
+    """Threads of a staged K3 block: one for each ``per_thread`` view
+    elements or board cells, whichever are more, in whole warps, 32 to
+    1024."""
+    work = lanes * max(a * vh * vw, h * w)
+    warps = -(-work // (32 * per_thread))
+    return 32 * min(32, max(1, warps))
+
+
+@functools.lru_cache(maxsize=64)
+def view_launch_shape(batch, a, h, w, vh, vw):
+    """(lanes_per_block, threads, shared bytes) of a K3 launch.
+
+    ``lanes_per_block`` 0 selects the global-memory form: one lane's board,
+    goals and tables do not fit the card's shared memory. Otherwise the
+    count is the largest of ``LANES_PER_BLOCK`` that leaves at least
+    ``_TARGET_BLOCKS`` blocks and fits the shared memory (above 48 KB the
+    kernel opts in), never more than the batch holds: 16 lanes a block at
+    26x26 and B = 4096, 2 at B = 512.
+    """
+    if view_smem_bytes(1, a, h, w, vh, vw) > MAX_SMEM_BYTES:
+        return 0, GLOBAL_THREADS, 0
+    best = 1
+    for n in LANES_PER_BLOCK[1:]:
+        if n > batch or -(-batch // n) < _TARGET_BLOCKS or \
+                view_smem_bytes(n, a, h, w, vh, vw) > MAX_SMEM_BYTES:
+            break
+        best = n
+    return (best, view_block_threads(best, a, h, w, vh, vw),
+            view_smem_bytes(best, a, h, w, vh, vw))
 
 
 def packed_board(board, goals, remove_white_goals=True):
@@ -68,14 +128,12 @@ def recenter_views(board, goals, cy, cx, exit_locs, exit_valid, *,
     """Batched packed observation views.
 
     board, goals int32[B, H, W]; cy, cx int32[B, A] (view centres);
-    exit_locs int32[B, E, 2]; exit_valid bool[B, E]; view_shape (vh, vw)
-    with vh <= H and vw <= W. Returns int32[B, A, vh, vw].
+    exit_locs int32[B, E, 2]; exit_valid bool[B, E]; view_shape (vh, vw),
+    of any size (views larger than the board tile it). Returns
+    int32[B, A, vh, vw].
     """
     b, h, w = board.shape
     vh, vw = view_shape
-    if vh > h or vw > w:
-        raise ValueError("recenter_views: view %dx%d larger than the %dx%d "
-                         "board" % (vh, vw, h, w))
     dev = board.device
     if dev.type == "cpu":
         return recenter_views_plain(board, goals, cy, cx, exit_locs,
@@ -91,14 +149,18 @@ def recenter_views(board, goals, cy, cx, exit_locs, exit_valid, *,
     _require("cx", cx, torch.int32, (b, a), dev)
     _require("exit_locs", exit_locs, torch.int32, (b, e, 2), dev)
     _require("exit_valid", exit_valid, torch.bool, (b, e), dev)
+    if b * a * vh * vw > _INT32_MAX:
+        raise ValueError("recenter_views: %d x %d views of %dx%d exceed "
+                         "32-bit indexing" % (b, a, vh, vw))
     out = torch.empty((b, a, vh, vw), dtype=torch.int32, device=dev)
-    _build.launch("sl_recenter_views", dev, board.data_ptr(),
-                  goals.data_ptr(), cy.data_ptr(), cx.data_ptr(),
-                  exit_locs.data_ptr(), exit_valid.data_ptr(),
-                  out.data_ptr(), b, a, h, w, vh, vw, e,
-                  int(bool(remove_white_goals)))
-    recenter_views.launches += 1
+    args = (board.data_ptr(), goals.data_ptr(), cy.data_ptr(), cx.data_ptr(),
+            exit_locs.data_ptr(), exit_valid.data_ptr(), out.data_ptr(),
+            b, a, h, w, vh, vw, e)
+    lanes, threads, _ = view_launch_shape(b, a, h, w, vh, vw)
+    if lanes:
+        _build.launch("sl_recenter_views", dev, *args, lanes, threads,
+                      int(bool(remove_white_goals)))
+    else:
+        _build.launch("sl_recenter_views_global", dev, *args, threads,
+                      int(bool(remove_white_goals)))
     return out
-
-
-recenter_views.launches = 0

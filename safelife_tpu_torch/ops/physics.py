@@ -10,13 +10,17 @@ Port of ``safelife_tpu/ops/physics.py``:
   ``_advance_kernel`` ``:353-368``): one CA step on a batch of boards.
   CUDA source ``csrc/advance.cu``.
 
-Each wrapper launches its CUDA kernel for tensors on a CUDA device and
-runs its plain version (``*_plain``, built from :mod:`..core`) for tensors
-on the CPU; there is no other route. ``launches`` on each wrapper counts
-its kernel launches. Both kernels run the CA step of ``csrc/ca.cuh`` on
-blocks of several boards; :func:`launch_shape` picks the block layout from
-the board shape and the batch. Boards of any shape up to ``MAX_CELLS``
-are taken, those smaller than 4x4 included.
+Each wrapper launches a CUDA kernel for tensors on a CUDA device and runs
+its plain version (``*_plain``, built from :mod:`..core`) for tensors on
+the CPU; there is no other route. Boards of any shape are taken, those
+smaller than 4x4 included. Up to ``MAX_CELLS`` cells, both kernels stage
+blocks of several boards in shared memory and run the CA step of
+``csrc/ca.cuh`` there; :func:`launch_shape` picks the block layout from the
+board shape and the batch. Larger boards take the global-memory form of
+the same sources (``physics_global_kernel``, ``advance_global_kernel``),
+which reads each cell's neighbourhood from device memory. The JAX package
+routes by board shape too (``safelife_tpu/ops/physics.py:78``).
+:mod:`._build` counts the launches of each form.
 
 Randomness: the stochastic spawn coin of cell ``i`` on board ``lane`` is
 the first word of Philox4x32-10 at counter ``(i, lane, 0, 0)`` under the
@@ -40,15 +44,20 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 
-#: Largest board the kernels take. A block stages the raw board and one
-#: packed word a cell in shared memory (8 bytes a cell), so a board of
-#: MAX_CELLS needs 96 KB; above 48 KB a kernel opts in to more.
+#: Largest board the staged kernels take. A block stages the raw board and
+#: one packed word a cell in shared memory (8 bytes a cell), so a board of
+#: MAX_CELLS needs 96 KB; above 48 KB a kernel opts in to more. Larger
+#: boards take the global-memory form.
 MAX_CELLS = 12288
 SMEM_BYTES_PER_CELL = 8
 #: Shared memory a block of the H100 may use after opting in (232,448 B).
 MAX_SMEM_BYTES = 227 * 1024
 _DEFAULT_SMEM_BYTES = 48 * 1024
 _MAX_THREADS = 1024
+#: Threads a block of the global-memory forms: K1's block takes one board,
+#: K2's a stretch of one board's cells.
+GLOBAL_THREADS_K1 = 1024
+GLOBAL_THREADS_K2 = 256
 _MAX_BOARDS_PER_BLOCK = 32
 #: Threads the CA walk aims to spread a batch over: about three quarters of
 #: the 132 x 2048 an H100 holds at once. Fewer leave the walk, a chain of
@@ -71,7 +80,7 @@ def block_threads(h, w, boards, rows):
 @functools.lru_cache(maxsize=64)
 def launch_shape(h, w, batch):
     """(boards_per_block, rows_per_thread, threads, shared bytes) of a
-    K1/K2 launch.
+    staged K1/K2 launch (boards of at most ``MAX_CELLS`` cells).
 
     One thread walks each column of each board in the CA step, or, when
     the batch has too few columns to keep the card busy, each segment of
@@ -97,12 +106,8 @@ def launch_shape(h, w, batch):
         used = min(n * walkers, _MAX_THREADS) / block_threads(h, w, n, rows)
         if used > best_used + 1e-9:
             best, best_used = n, used
-    smem = best * h * w * SMEM_BYTES_PER_CELL
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError("%dx%d boards need %d bytes of shared memory a "
-                         "block, above the card's %d" % (h, w, smem,
-                                                         MAX_SMEM_BYTES))
-    return best, rows, block_threads(h, w, best, rows), smem
+    return (best, rows, block_threads(h, w, best, rows),
+            best * h * w * SMEM_BYTES_PER_CELL)
 
 
 def _mulhilo(m, x):
@@ -155,9 +160,6 @@ def _check(name, board, h, w, device):
     if board.dim() != 2 or board.shape[1] != h * w:
         raise ValueError("%s: board must be [B, H*W] = [B, %d], got %s"
                          % (name, h * w, tuple(board.shape)))
-    if h * w > MAX_CELLS:
-        raise ValueError("%s: %dx%d boards exceed the kernel's %d cells"
-                         % (name, h, w, MAX_CELLS))
     if device.type not in ("cpu", "cuda"):
         raise ValueError("%s: unsupported device %s" % (name, device))
 
@@ -215,18 +217,21 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
     out_board = torch.empty_like(board)
     out_locs = torch.empty_like(agent_locs)
     out_cells = torch.empty((b, a), dtype=torch.int32, device=dev)
-    bpb, rows, threads, _ = launch_shape(h, w, b)
-    _build.launch(
-        "sl_fused_actions_advance", dev,
-        board.data_ptr(), agent_locs.data_ptr(), actions.data_ptr(),
-        spawn_prob.data_ptr(), seed.data_ptr(), out_board.data_ptr(),
-        out_locs.data_ptr(), out_cells.data_ptr(), b, h, w, a, bpb, rows,
-        threads, int(bool(stochastic)))
-    fused_actions_advance.launches += 1
+    inputs = (board.data_ptr(), agent_locs.data_ptr(), actions.data_ptr(),
+              spawn_prob.data_ptr(), seed.data_ptr())
+    outputs = (out_board.data_ptr(), out_locs.data_ptr(),
+               out_cells.data_ptr())
+    if h * w > MAX_CELLS:
+        # The board after the actions, which the CA step reads.
+        scratch = torch.empty_like(board)
+        _build.launch("sl_fused_actions_advance_global", dev, *inputs,
+                      scratch.data_ptr(), *outputs, b, h, w, a,
+                      GLOBAL_THREADS_K1, int(bool(stochastic)))
+    else:
+        bpb, rows, threads, _ = launch_shape(h, w, b)
+        _build.launch("sl_fused_actions_advance", dev, *inputs, *outputs,
+                      b, h, w, a, bpb, rows, threads, int(bool(stochastic)))
     return out_board, out_locs, out_cells
-
-
-fused_actions_advance.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +263,13 @@ def advance(board, spawn_prob, seed, *, h, w, stochastic):
     _require("spawn_prob", spawn_prob, torch.float32, (b,), dev)
     _require("seed", seed, torch.int32, (2,), dev)
     out = torch.empty_like(board)
-    bpb, rows, threads, _ = launch_shape(h, w, b)
-    _build.launch("sl_advance", dev, board.data_ptr(), spawn_prob.data_ptr(),
-                  seed.data_ptr(), out.data_ptr(), b, h, w, bpb, rows,
-                  threads, int(bool(stochastic)))
-    advance.launches += 1
+    args = (board.data_ptr(), spawn_prob.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), b, h, w)
+    if h * w > MAX_CELLS:
+        _build.launch("sl_advance_global", dev, *args, GLOBAL_THREADS_K2,
+                      int(bool(stochastic)))
+    else:
+        bpb, rows, threads, _ = launch_shape(h, w, b)
+        _build.launch("sl_advance", dev, *args, bpb, rows, threads,
+                      int(bool(stochastic)))
     return out
-
-
-advance.launches = 0

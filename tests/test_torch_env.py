@@ -215,3 +215,31 @@ def test_step_core_tiny_board_matches_jax():
         _eq(td, jd, "done, step %d" % t)
         _eq(TE._batch_obs(tcfg, tpool, tstate),
             JE._batch_obs(jcfg, jpool, jstate), "obs, step %d" % t)
+
+
+@pytest.mark.parametrize("view", [(15, 15), (25, 25)])
+def test_views_larger_than_tiny_levels_match_jax(view):
+    """3x3 levels under views larger than the board (the default 15x15,
+    and the benchmark's 25x25): reset and every step_core's _batch_obs
+    equal the JAX env's, which tiles the board (get_obs_batch)."""
+    jl, tl = _tiny_levels(seed=11)
+    jpool, tpool = JST.pack_levels(jl), TST.pack_levels(tl, device="cpu")
+    b, steps = 8, 8
+    kw = dict(view_shape=view, output_channels=None, time_limit=6,
+              auto_reset=False)
+    jcfg, tcfg = JE.EnvConfig(**kw), TE.EnvConfig(**kw)
+    jstate, jobs = JE.reset(jcfg, jpool, jax.random.PRNGKey(0), b)
+    tstate, tobs = TE.reset(tcfg, tpool, b)
+    assert tobs.shape == (b, 1) + view
+    _eq(tobs, jobs, "reset obs")
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(5)
+    for t in range(steps):
+        acts = rng.integers(0, 9, (b, 1)).astype(np.int32)
+        jstate, *_ = JE.step_core(jcfg, jpool, jstate, jnp.asarray(acts),
+                                  jax.random.PRNGKey(t))
+        tstate, *_ = TE.step_core(tcfg, tpool, tstate,
+                                  torch.from_numpy(acts), gen)
+        _state_eq(tstate, jstate)
+        _eq(TE._batch_obs(tcfg, tpool, tstate),
+            JE._batch_obs(jcfg, jpool, jstate), "obs, step %d" % t)

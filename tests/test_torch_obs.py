@@ -86,10 +86,50 @@ def test_channel_unpack_matches_jax():
         np.testing.assert_array_equal(out, ref)
 
 
-def test_view_larger_than_board_raises():
-    z = torch.zeros((1, 6, 6), dtype=torch.int32)
-    c = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        ops.recenter_views(
-            z, z, c, c, torch.zeros((1, 1, 2), dtype=torch.int32),
-            torch.zeros((1, 1), dtype=torch.bool), view_shape=(7, 6))
+@pytest.mark.parametrize("shape,view", [
+    ((6, 6), (7, 6)), ((3, 3), (25, 25)), ((10, 12), (15, 15)),
+    ((4, 9), (25, 25))])
+@pytest.mark.parametrize("a", [1, 3])
+@pytest.mark.parametrize("n_exits", [0, 2])
+def test_view_larger_than_board_matches_jax(shape, view, a, n_exits):
+    """Views larger than the board tile it, as JAX's XLA formulation
+    ``get_obs_batch`` does (the Pallas kernel is not used there)."""
+    rng = np.random.default_rng(hash((shape, view, a, n_exits)) % 2 ** 31)
+    h, w = shape
+    board, goals, locs, mask, el, ev = _case(rng, 8, a, n_exits, h=h, w=w)
+    cfg = JE.EnvConfig(view_shape=view, output_channels=None)
+    ref = np.asarray(JE.get_obs_batch(
+        cfg, *[jnp.asarray(x) for x in (board, goals, locs, mask, el, ev)]))
+    center = np.where(mask[..., None], locs, 0).astype(np.int32)
+    t = torch.from_numpy
+    got = ops.recenter_views(
+        t(board), t(goals), t(np.ascontiguousarray(center[..., 0])),
+        t(np.ascontiguousarray(center[..., 1])), t(el), t(ev),
+        view_shape=view).numpy()
+    assert got.shape == ref.shape == (8, a) + view
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("args,expected", [
+    # The main path: 26x26 prune-dynamic boards, one agent, 25x25 views.
+    ((4096, 1, 26, 26, 25, 25), (16, 1024, (2 * 16 * 676 + 16 * 50) * 4)),
+    ((512, 1, 26, 26, 25, 25), (2, 192, (2 * 2 * 676 + 2 * 50) * 4)),
+    ((8, 3, 26, 26, 15, 15), (1, 96, (2 * 676 + 3 * 30) * 4)),
+    # Views larger than the board: the threads follow the elements.
+    ((4096, 3, 3, 3, 25, 25), (16, 1024, (144 + 144 + 16 * 3 * 50) * 4)),
+    ((4, 3, 26, 26, 200, 200), (1, 1024, (2 * 676 + 3 * 400) * 4)),
+    # One lane above 48 KB opts in; above 227 KB it takes the global-memory
+    # form.
+    ((64, 1, 96, 128, 25, 25), (1, 1024, (2 * 12288 + 50) * 4)),
+    ((64, 1, 192, 192, 25, 25), (0, 256, 0)),
+    # The boards of a block are padded to 16 bytes before the goals.
+    ((1, 1, 1, 1, 1, 1), (1, 32, (4 + 1 + 2) * 4)),
+])
+def test_view_launch_shape(args, expected):
+    """Lanes a block, threads and shared bytes of K3 launches: the most
+    lanes (of 1, 2, 4, 8, 16) that leave 256 blocks, a thread for 8
+    elements or cells, and the global-memory form for lanes too large to
+    stage."""
+    from safelife_tpu_torch.ops import obs as O
+
+    assert O.view_launch_shape(*args) == expected

@@ -230,10 +230,66 @@ def test_shapes_outside_the_kernels_raise():
     with pytest.raises(ValueError):
         P.advance(board, torch.zeros(2), _seed(0, 0), h=4, w=4,
                   stochastic=False)
-    big = torch.zeros((1, P.MAX_CELLS + 1), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        P.advance(big, torch.zeros(1), _seed(0, 0), h=1,
-                  w=P.MAX_CELLS + 1, stochastic=False)
+
+
+#: Boards above MAX_CELLS, which take the kernels' global-memory form on
+#: the card.
+LARGE_SHAPES = [(112, 112), (6, 2100)]
+
+
+@pytest.mark.parametrize("shape", LARGE_SHAPES)
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_large_boards_fused_matches_jax(shape, stochastic):
+    """K1 on boards above MAX_CELLS against JAX's execute_actions → CA
+    step → agent_cells: deterministic, and with spawners at p = 0.3 fed
+    the same Philox coins (advance_board_given_spawns)."""
+    rng = np.random.default_rng(60 + shape[1] + stochastic)
+    b, (h, w) = 2, shape
+    assert h * w > P.MAX_CELLS
+    board, locs = soup(rng, b, h, w, 2, spawners=stochastic)
+    acts = rng.integers(0, 9, (b, 2)).astype(np.int32)
+    sp = torch.full((b,), 0.3)
+    seed = _seed(-987654321, 123456789)
+
+    xb, xl = jax.vmap(JAC.execute_actions)(
+        jnp.asarray(board), jnp.asarray(locs), jnp.asarray(acts))
+    if stochastic:
+        coins = P.spawn_coins(seed, sp, b, h * w).numpy().reshape(b, h, w)
+        assert coins.any()
+        xb = JADV.advance_board_given_spawns(xb, jnp.asarray(coins))
+    else:
+        xb = JADV.advance_board_deterministic(xb)
+    pb, pl, pc = P.fused_actions_advance(
+        torch.from_numpy(board.reshape(b, h * w)), torch.from_numpy(locs),
+        torch.from_numpy(acts), sp, seed, h=h, w=w, stochastic=stochastic)
+    np.testing.assert_array_equal(pb.numpy().reshape(b, h, w),
+                                  np.asarray(xb))
+    np.testing.assert_array_equal(pl.numpy(), np.asarray(xl))
+    np.testing.assert_array_equal(pc.numpy(),
+                                  np.asarray(JS.agent_cells(xb, xl)))
+
+
+@pytest.mark.parametrize("shape", LARGE_SHAPES)
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_large_boards_advance_matches_jax(shape, stochastic):
+    """K2 on boards above MAX_CELLS against JAX's CA step: deterministic,
+    and with spawners at p = 0.3 fed the same Philox coins."""
+    rng = np.random.default_rng(70 + shape[1] + stochastic)
+    b, (h, w) = 2, shape
+    board, _ = soup(rng, b, h, w, 2, spawners=stochastic)
+    sp = torch.full((b,), 0.3)
+    seed = _seed(31337, -4242)
+    if stochastic:
+        coins = P.spawn_coins(seed, sp, b, h * w).numpy().reshape(b, h, w)
+        ref = JADV.advance_board_given_spawns(jnp.asarray(board),
+                                              jnp.asarray(coins))
+    else:
+        ref = JADV.advance_board_deterministic(jnp.asarray(board))
+    got = P.advance(torch.from_numpy(board.reshape(b, h * w)), sp, seed,
+                    h=h, w=w, stochastic=stochastic)
+    np.testing.assert_array_equal(got.numpy().reshape(b, h, w),
+                                  np.asarray(ref))
+    assert (got.numpy() != board.reshape(b, h * w)).any()
 
 
 @pytest.mark.parametrize("shape,batch,expected", [
