@@ -40,6 +40,25 @@ non-zero:
    forms of all three kernels must have run. Then 16 lanes x 10 steps of
    such levels without spawners (the card's and the CPU's generators draw
    different seeds) on the card against the port's CPU path.
+5. The training path: ``ppo.train_iteration`` (a wrapped rollout of 20
+   steps with the inaction baseline, GAE, 3 epochs x 5 Adam minibatches)
+   on the append-spawn v1.0 benchmark (100 levels, spawners, static goals)
+   at 4096 lanes (the training batch) and 64 lanes (the CLI's default
+   batch), with the dense-512 policy on packed 25x25 views: one warm-up
+   iteration, then 3 timed ones with the launch counts zeroed just before
+   and read just after (K1, K2 and K3 20 times an iteration each, no
+   global form); finite losses, parameters that moved, ``num_steps``; a
+   rollout and an update timed apart, and a profile of one iteration and
+   of its two halves. Then the wrapped step on prune-dynamic (goals that
+   evolve: K2 twice a step under the inaction baseline), 64 lanes x 40
+   steps on the card against the port's CPU path under the same actions,
+   both baselines, with and without resets: exact. Last, one
+   ``train_on_batch`` of a 4096-lane and of a 64-lane card rollout on the
+   card and on the CPU, from the parameters that collected each and with
+   the same permutations: first-minibatch loss within 1e-5 relative, its
+   gradients within 6e-5 of their norm, then the parameters within 5% of
+   the update's norm; TF32 off in every forward and backward of every
+   layer on the card.
 
 Then it times each kernel form and its plain version at the shapes of the
 path that runs it (the main path's at B = 512 and 4096, the large-board
@@ -49,11 +68,13 @@ prints, before the last line, the card's name and power limit as
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -817,11 +838,51 @@ def rollout_rate(dev, pool, net, lanes, steps=200):
     return lanes * steps / (time.perf_counter() - t0)
 
 
-def profile_rollout(dev, pool, net, lanes, steps=50):
-    """Device busy share and device time by kernel over ``steps`` rollout
-    steps (the profiler's own cost inflates the wall time a little)."""
+def profile_window(fn, what, per, n_per, top=10):
+    """Run ``fn()`` once under the profiler and log the wall time, the
+    device busy time (the union of device activity spans) and the top
+    device operations, each per ``per`` (``n_per`` of them); the
+    profiler's own cost inflates the wall time a little. Returns (wall us,
+    busy us)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    def on_device(e):
+        # A user annotation (e.g. ``Optimizer.step``) spans the device work
+        # it launched, gaps included: not an activity of its own.
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if on_device(e))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    kernels = sorted(((e.device_time_total, e.count, e.key)
+                      for e in prof.key_averages() if on_device(e)),
+                     reverse=True)
+    total = sum(k[0] for k in kernels) or 1.0
+    log("profile of %s: wall %.1f us/%s, device busy %.1f us/%s (%.1f%%), "
+        "%d device activities/%s"
+        % (what, wall_us / n_per, per, busy / n_per, per,
+           100 * busy / wall_us, len(spans) / n_per, per))
+    for t, n, key in kernels[:top]:
+        log("  %6.1f%% %9.1f us  x%-6d %s"
+            % (100 * t / total, t / n_per, n // n_per, key[:90]))
+    return wall_us, busy
+
+
+def profile_rollout(dev, pool, net, lanes, steps=50):
+    """Device busy share and device time by kernel over ``steps`` rollout
+    steps."""
     from safelife_tpu_torch.env import env as E
     from safelife_tpu_torch.training import runner as R
 
@@ -829,33 +890,371 @@ def profile_rollout(dev, pool, net, lanes, steps=50):
     gen = torch.Generator(device=dev).manual_seed(4)
     idx = torch.arange(lanes, device=dev) % pool.num_levels
     R.run_episodes(cfg, pool, net, idx, gen, 3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        R.run_episodes(cfg, pool, net, idx, gen, steps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    kernels = sorted(((e.device_time_total, e.count, e.key)
-                      for e in prof.key_averages() if e.device_type == cuda),
-                     reverse=True)
-    total = sum(k[0] for k in kernels) or 1.0
-    log("profile of %d rollout steps at %d lanes: wall %.1f us/step, device "
-        "busy %.1f us/step (%.1f%%), %d device activities/step"
-        % (steps, lanes, wall_us / steps, busy / steps,
-           100 * busy / wall_us, len(spans) / steps))
-    for t, n, key in kernels[:10]:
-        log("  %6.1f%% %9.1f us  x%-6d %s"
-            % (100 * t / total, t / steps, n // steps, key[:90]))
+    wall_us, busy = profile_window(
+        lambda: R.run_episodes(cfg, pool, net, idx, gen, steps),
+        "%d rollout steps at %d lanes" % (steps, lanes), "step", steps)
     return busy / wall_us
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the PPO training path
+
+
+TRAIN_LEVELS = "benchmarks/v1.0/append-spawn.npz"
+TRAIN_LANES = (4096, 64)
+TRAIN_ITERS = 3
+
+
+def training_setup(dev, levels, tree, lanes, seed):
+    """The training path at full width: the inaction baseline, PPOConfig
+    defaults, packed 25x25 views, the dense-512 policy from ``tree``."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import ppo as P
+
+    pool = pack_levels(levels, device=dev)
+    run = dict(
+        pool=pool, cfg=E.EnvConfig(view_shape=VIEW, output_channels=None),
+        wcfg=W.WrapperConfig(se_baseline="inaction"), pcfg=P.PPOConfig(),
+        gen=torch.Generator(device=dev).manual_seed(seed), dev=dev)
+    run["ps"] = P.init_ppo_state(run["pcfg"], policy(tree, dev), device=dev)
+    run["ws"], run["obs"] = W.reset(run["cfg"], run["wcfg"], pool, lanes,
+                                    device=dev)
+    return run
+
+
+def train_iteration(run):
+    """One ``ppo.train_iteration`` of ``run`` (se_penalty_coef 1,
+    min_perf_fraction 1); returns its metrics."""
+    from safelife_tpu_torch.training import ppo as P
+
+    run["ps"], run["ws"], run["obs"], metrics = P.train_iteration(
+        run["cfg"], run["wcfg"], run["pcfg"], run["pool"], run["ps"],
+        run["ws"], run["obs"], run["gen"], 1.0, 1.0, device=run["dev"])
+    return metrics
+
+
+def rollout_batch(run):
+    """A rollout and GAE of ``run``, without the update: the learner
+    batch."""
+    from safelife_tpu_torch.training import ppo as P
+
+    traj, (run["ws"], run["obs"]), final = P.rollout(
+        run["cfg"], run["wcfg"], run["pool"], run["ps"].model, run["ws"],
+        run["obs"], run["gen"], run["pcfg"].steps_per_env, 1.0, 1.0)
+    return P.flatten_batch(traj, *P.compute_gae(run["pcfg"], traj, final))
+
+
+def event_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def run_training_path(dev, levels, tree, lanes, card):
+    """Warm-up, then TRAIN_ITERS timed ``train_iteration``s with the launch
+    counts zeroed just before and read just after; then a rollout and an
+    update timed apart. Returns the run, the last rollout's batch and the
+    parameters that collected it."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.training import ppo as P
+
+    run = training_setup(dev, levels, tree, lanes, seed=10)
+    pool, pcfg = run["pool"], run["pcfg"]
+    if not pool.all_goals_static or pool.spawner_free:
+        raise AssertionError("append-spawn must have static goals and "
+                             "spawners")
+    train_iteration(run)
+    before = model_state(run)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    iter_ms = []
+    for _ in range(TRAIN_ITERS):
+        ms, metrics = event_ms(lambda: train_iteration(run))
+        iter_ms.append(ms)
+    launches = ops.launch_counts()
+
+    steps = pcfg.steps_per_env
+    expected = {"fused_actions_advance": steps * TRAIN_ITERS,
+                "advance": steps * TRAIN_ITERS,
+                "recenter_views": steps * TRAIN_ITERS}
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError("training path at %d lanes launched %s %d "
+                                 "times, expected %d"
+                                 % (lanes, name, n, expected.get(name, 0)))
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "reward_mean",
+              "values_mean", "advantages_mean"):
+        if not torch.isfinite(metrics[k]).all():
+            raise AssertionError("non-finite %s" % k)
+    moved = max(float((v - before[k]).abs().max())
+                for k, v in run["ps"].model.state_dict().items())
+    if not moved > 0:
+        raise AssertionError("the parameters did not change")
+    if run["ps"].num_steps != (TRAIN_ITERS + 1) * steps * lanes:
+        raise AssertionError("num_steps %d" % run["ps"].num_steps)
+
+    state = model_state(run)
+    rollout_ms, batch = event_ms(lambda: rollout_batch(run))
+    update_ms, _ = event_ms(lambda: P.train_on_batch(
+        pcfg, run["ps"], batch, run["gen"]))
+    mean_ms = sum(iter_ms) / len(iter_ms)
+    samples = pcfg.epochs_per_batch * batch["obs"].shape[0]
+    log("training path (append-spawn, inaction baseline, PPOConfig "
+        "defaults) at %d lanes: train_iteration %s ms (mean %.3f), rollout "
+        "of %d steps %.3f ms, update (%d epochs x %d minibatches over %d "
+        "samples) %.3f ms; %.0f training env-steps/s, %.0f learner "
+        "samples/s; loss %.5f, entropy %.5f, max |dparam| %.3e, num_steps "
+        "%d; launches %s  [%s]"
+        % (lanes, ", ".join("%.3f" % m for m in iter_ms), mean_ms, steps,
+           rollout_ms, pcfg.epochs_per_batch, pcfg.num_minibatches + 1,
+           batch["obs"].shape[0], update_ms, steps * lanes / mean_ms * 1e3,
+           samples / update_ms * 1e3, float(metrics["loss"]),
+           float(metrics["entropy"]), moved, run["ps"].num_steps,
+           json.dumps(launches), card))
+    return run, batch, state
+
+
+def profile_training(run):
+    """Device busy share and top device operations of one train_iteration
+    of ``run``, then of its rollout and its update apart."""
+    from safelife_tpu_torch.training import ppo as P
+
+    steps = run["pcfg"].steps_per_env
+    lanes = run["obs"].shape[0]
+    wall, busy = profile_window(
+        lambda: train_iteration(run),
+        "one train_iteration at %d lanes" % lanes, "iteration", 1, top=12)
+    holder = {}
+    profile_window(lambda: holder.update(batch=rollout_batch(run)),
+                   "its rollout (and GAE) at %d lanes" % lanes, "step",
+                   steps)
+    profile_window(lambda: P.train_on_batch(run["pcfg"], run["ps"],
+                                            holder["batch"], run["gen"]),
+                   "its update at %d lanes" % lanes, "iteration", 1)
+    return busy / wall
+
+
+def check_wrapped_env_against_cpu(dev, levels, lanes=64, steps=40):
+    """The wrapped step on the card against the port's CPU path on
+    prune-dynamic (no spawners, goals that evolve) under the same numpy
+    actions, for both baselines: with the 64-level pool and no resets, and
+    with a one-level pool whose lanes reset (time limit 15). Boards, the
+    ring, counts, side effects, baseline and start boards and views bit for
+    bit, shaped rewards and done flags exactly. K2 runs once a step for the
+    goals and once more for the inaction baseline."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+
+    rng = np.random.default_rng(11)
+    acts = rng.integers(0, 9, (steps, lanes, 1)).astype(np.int32)
+    fields = ("prior_positions", "prior_count", "last_side_effect",
+              "baseline_board", "episode_start_board")
+    for baseline in ("inaction", "starting-state"):
+        wcfg = W.WrapperConfig(se_baseline=baseline)
+        for pool_levels, auto_reset, limit in ((levels[:lanes], False, 1000),
+                                               (levels[:1], True, 15)):
+            cfg = E.EnvConfig(view_shape=VIEW, output_channels=None,
+                              time_limit=limit, auto_reset=auto_reset)
+            runs, resets, launched = [], 0, None
+            for d in (dev, torch.device("cpu")):
+                before = ops.launch_counts()
+                pool = pack_levels(pool_levels, device=d)
+                ws, obs = W.reset(cfg, wcfg, pool, lanes, device=d)
+                gen = torch.Generator(device=d).manual_seed(0)
+                out = []
+                for t in range(steps):
+                    ws, obs, rew, done, info = W.step(
+                        cfg, wcfg, pool, ws, torch.from_numpy(acts[t]).to(d),
+                        gen, 1.0, 1.0)
+                    out.append([x.cpu() for x in (
+                        ws.env.board, ws.env.agent_locs, obs, rew, done)]
+                        + [getattr(ws, f).cpu() for f in fields])
+                    resets += int(info["lane_done"].sum())
+                runs.append(out)
+                if launched is None:
+                    after = ops.launch_counts()
+                    launched = {k: after[k] - before[k] for k in after
+                                if after[k] > before[k]}
+            want = steps * (2 if baseline == "inaction" else 1)
+            if launched.get("advance") != want \
+                    or launched.get("fused_actions_advance") != steps:
+                raise AssertionError("wrapped step launched %s, expected K2 "
+                                     "%d times" % (launched, want))
+            names = ("boards", "locations", "views", "shaped rewards",
+                     "done") + fields
+            for t, (card, host) in enumerate(zip(*runs)):
+                for name, x, y in zip(names, card, host):
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            "wrapped step (%s, %d levels): %s differ at "
+                            "step %d" % (baseline, len(pool_levels), name, t))
+            log("wrapped step on the card equals the CPU path (%s baseline, "
+                "%d lanes x %d steps, %d-level pool, %d lane resets on both "
+                "sides): boards, ring, counts, side effects, baseline and "
+                "start boards, views, shaped rewards, done exact; launches %s"
+                % (baseline, lanes, steps, len(pool_levels), resets // 2,
+                   json.dumps(launched)))
+
+
+def model_state(run):
+    """A copy of the parameters of ``run``'s learner."""
+    return {k: v.detach().clone()
+            for k, v in run["ps"].model.state_dict().items()}
+
+
+@contextlib.contextmanager
+def tf32_probe(model):
+    """Record, each time a convolution or dense layer of ``model`` runs
+    forward or backward, whether TF32 was allowed for cuBLAS or cuDNN.
+    Yields the list of records (True where it was)."""
+    seen = []
+
+    def record(*_):
+        seen.append(torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            handles.append(m.register_forward_pre_hook(record))
+            handles.append(m.register_full_backward_pre_hook(record))
+    try:
+        with warnings.catch_warnings():
+            # conv0's input needs no gradient: its hook fires on outputs.
+            warnings.filterwarnings("ignore", message="Full backward hook")
+            yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def learner_diffs(dev, tree, state, batch, seed=12):
+    """The learner on the card against the CPU path: from parameters
+    ``state`` (loaded into ``tree``'s network), the first minibatch's loss
+    and gradients, then one ``train_on_batch`` of ``batch`` with the same
+    permutations on both. Returns the loss's relative difference; the
+    gradients' difference over all parameters (norm), and per tensor (the
+    largest norm ratio, and the largest element over the tensor's largest
+    magnitude); the parameters' difference after the update, as a norm
+    over the norm of the update, its largest element and how many differ
+    by more than 1e-5; and, on the card, how many layer runs (forward and
+    backward) allowed TF32, of how many."""
+    from safelife_tpu_torch.models import nets
+    from safelife_tpu_torch.training import ppo as P
+
+    cfg = P.PPOConfig()
+    n = batch["obs"].shape[0]
+    rng = np.random.default_rng(seed)
+    perms = [rng.permutation(n) for _ in range(cfg.epochs_per_batch)]
+    first = torch.from_numpy(perms[0][slice(*P._minibatch_bounds(
+        n, cfg.num_minibatches)[0])])
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        net = policy(tree, d)
+        net.load_state_dict(state)
+        b = {k: v.to(d) for k, v in batch.items()}
+        mb = {k: v.index_select(0, first.to(d)) for k, v in b.items()}
+        with tf32_probe(net) as tf32:
+            with nets.strict_float32():
+                loss, _ = P.calculate_loss(
+                    cfg, net, mb["obs"], mb["actions"], mb["action_prob"],
+                    mb["values"], mb["returns"], mb["advantages"],
+                    mb["weight"])
+                loss.backward()
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in net.named_parameters()}
+            net.zero_grad(set_to_none=True)
+            P.train_on_batch(cfg, P.init_ppo_state(cfg, net, device=d), b,
+                             None, perms=perms)
+        sides.append((loss.item(), grads, tf32,
+                      {k: v.cpu() for k, v in net.state_dict().items()},
+                      time.perf_counter() - t0))
+    (lc, gc, tf32, pc, card_s), (lh, gh, _, ph, cpu_s) = sides
+
+    def flat(tree_):
+        return torch.cat([tree_[k].flatten() for k in gh]).double()
+
+    g_diff, g_ref = flat({k: gc[k] - gh[k] for k in gh}), flat(gh)
+    p_diff = flat({k: pc[k] - ph[k] for k in gh})
+    moved = flat({k: ph[k] - state[k].cpu() for k in gh})
+    return {
+        "loss": abs(lc - lh) / max(abs(lh), 1e-30),
+        "grad_norm": float(g_diff.norm() / g_ref.norm()),
+        "grad_tensor_norm": max(float((gc[k] - gh[k]).norm() / gh[k].norm())
+                                for k in gh),
+        "grad_tensor_max": max(float((gc[k] - gh[k]).abs().max()
+                                     / gh[k].abs().max()) for k in gh),
+        "update_norm": float(p_diff.norm() / moved.norm()),
+        "param_max": float(p_diff.abs().max()),
+        "params_over_1e-5": int((p_diff.abs() > 1e-5).sum()),
+        "params": p_diff.numel(),
+        "tf32_layer_runs": sum(tf32),
+        "layer_runs": len(tf32),
+        "steps": cfg.epochs_per_batch * (cfg.num_minibatches + 1),
+        "card_s": card_s,
+        "cpu_s": cpu_s,
+    }
+
+
+def learner_line(r):
+    return ("first-minibatch loss rel %.2e, gradients |dg| / |g| %.2e (per "
+            "tensor: norm %.2e, max element / max |g| %.2e); parameters "
+            "after %d Adam steps: |dp| / |update| %.2e, max |dp| %.2e, %d "
+            "of %d above 1e-5; TF32 allowed in %d of %d layer runs on the "
+            "card; %.1f s on the card, %.1f s on the CPU"
+            % (r["loss"], r["grad_norm"], r["grad_tensor_norm"],
+               r["grad_tensor_max"], r["steps"], r["update_norm"],
+               r["param_max"], r["params_over_1e-5"], r["params"],
+               r["tf32_layer_runs"], r["layer_runs"], r["card_s"],
+               r["cpu_s"]))
+
+
+#: The learner check's bounds (``check_learner_against_cpu``). Over 48
+#: batches at 64 lanes and 7 at 4096 (``chip_sweep.py learner`` and
+#: ``learner-4096``, and this script) strict float32 put the gradients at
+#: most 2.2e-5 of their norm apart and TF32 at least 1.8e-4: the gradient
+#: bound lies between, near their geometric mean. The update's norm ratio
+#: of the two overlaps (strict up to 9.2e-3, TF32 from 3.2e-3), so its
+#: bound catches gross faults only.
+LEARNER_LOSS_REL = 1e-5
+LEARNER_GRAD_NORM = 6e-5
+LEARNER_UPDATE_NORM = 5e-2
+
+
+def check_learner_against_cpu(dev, tree, state, batch, card):
+    """The learner on the card against the CPU path from the parameters
+    that collected ``batch`` (``learner_diffs``): TF32 off in every
+    forward and backward run of every convolution and dense layer on the
+    card; the first minibatch's loss within 1e-5 relative and its
+    gradients within 6e-5 of their norm, which TF32 misses; the parameters
+    after the 15 Adam steps within 5% of the update's norm.
+
+    Why norms and not elements: an activation or a clip within float32
+    rounding of its threshold can take the other branch on the other
+    device, and Adam turns a rounding difference in a gradient near zero
+    into a whole step of the learning rate. In strict float32 a few
+    batches in a hundred then show one tensor's gradient up to 1e-3 of its
+    largest element apart, or thousands of parameters up to 6e-4 apart
+    after 15 steps (``chip_sweep.py learner``). The layer probe is a second
+    witness of TF32."""
+    r = learner_diffs(dev, tree, state, batch)
+    log("learner on the card vs the CPU (%d samples of a card rollout): %s"
+        "  [%s]" % (batch["obs"].shape[0], learner_line(r), card))
+    if r["tf32_layer_runs"] or not r["layer_runs"]:
+        raise AssertionError("TF32 was allowed in %d of %d layer runs"
+                             % (r["tf32_layer_runs"], r["layer_runs"]))
+    if r["loss"] > LEARNER_LOSS_REL or r["grad_norm"] > LEARNER_GRAD_NORM \
+            or r["update_norm"] > LEARNER_UPDATE_NORM:
+        raise AssertionError("the learner on the card differs from the CPU "
+                             "path beyond its tolerance")
+
 
 
 # ---------------------------------------------------------------------------
@@ -943,6 +1342,23 @@ def main():
     check_levels_against_cpu(dev, large_levels(spawners=False), VIEW,
                              "%dx%d levels without spawners" % LARGE_LEVEL,
                              lanes=16, steps=10)
+
+    # Phase 5
+    spawn = load_levels(TRAIN_LEVELS)
+    if len(spawn) != 100:
+        raise AssertionError("expected 100 append-spawn levels")
+    learner_batches = []
+    for lanes in TRAIN_LANES:
+        run, batch, state = run_training_path(dev, spawn, tree, lanes,
+                                              card)
+        profile_training(run)
+        del run
+        learner_batches.append((batch, state))
+    check_wrapped_env_against_cpu(dev, prune)
+    # At 4096 lanes cuDNN takes the FFT and wgrad_alg0 engines of the
+    # main path's 16,384-sample minibatches; at 64 lanes, others.
+    for batch, state in learner_batches:
+        check_learner_against_cpu(dev, tree, state, batch, card)
 
     # Timings at the main path's shapes (B = 512 and 4096) and at the
     # large-board path's.

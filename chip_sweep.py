@@ -1,10 +1,10 @@
 """The kernels over their block layouts, and the host cost of a kernel
 call, on one CUDA card.
 
-    python3 chip_sweep.py [physics] [views] [host]
+    python3 chip_sweep.py [physics] [views] [host] [learner] [learner-4096]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all three parts). It imports torch and the port only, prints
+argument runs all five parts). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -25,6 +25,13 @@ prune-dynamic boards:
   achievable-bandwidth yardstick (not a port of the function).
 * At B = 512, the host time of one wrapper call and of the parts of the
   launch path, in microseconds a call over 2000 calls.
+* ``learner``: the spread of ``chip_smoke.py``'s learner check (the PPO
+  update on the card against the CPU path) over 48 batches of a 64-lane
+  append-spawn training run, once in strict float32 and once with TF32
+  allowed for cuBLAS and cuDNN: the loss, gradient and parameter
+  differences that the check bounds. ``learner-4096``: the same over 6
+  batches of a 4096-lane run (minibatches of 16,384 samples, where cuDNN
+  takes other convolution engines).
 """
 
 import contextlib
@@ -202,11 +209,65 @@ def host_cost(dev, pool, n=2000):
     return out
 
 
+@contextlib.contextmanager
+def tf32_learner():
+    """The learner with TF32 allowed everywhere: ``strict_float32`` (of
+    the network and of ``training/ppo.py``) swapped for a context that
+    turns TF32 on."""
+    from safelife_tpu_torch.models import nets
+    from safelife_tpu_torch.training import ppo
+
+    @contextlib.contextmanager
+    def allow_tf32():
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+
+    strict = nets.strict_float32
+    nets.strict_float32 = ppo.strict_float32 = allow_tf32
+    try:
+        yield
+    finally:
+        nets.strict_float32 = ppo.strict_float32 = strict
+
+
+def learner_spread(dev, card, lanes, n_batches):
+    """``cs.learner_diffs`` on successive batches of one training run of
+    ``lanes`` lanes, from the parameters that collected each batch, strict
+    and TF32."""
+    import numpy as np
+
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+    from safelife_tpu_torch.training import ppo
+
+    tree = cs.random_policy_tree(np.random.default_rng(0),
+                                 len(TRAINING_CHANNELS), cs.VIEW)
+    run = cs.training_setup(dev, load_levels(cs.TRAIN_LEVELS), tree, lanes,
+                            seed=10)
+    for i in range(n_batches):
+        state = cs.model_state(run)
+        batch = cs.rollout_batch(run)
+        for mode, ctx in (("strict float32", contextlib.nullcontext),
+                          ("TF32", tf32_learner)):
+            with ctx():
+                r = cs.learner_diffs(dev, tree, state, batch, seed=12 + i)
+            print("learner at %d lanes, batch %d, %s: %s  [%s]"
+                  % (lanes, i, mode, cs.learner_line(r), card), flush=True)
+        ppo.train_on_batch(run["pcfg"], run["ps"], batch, run["gen"])
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
-    parts = sys.argv[1:] or ["physics", "views", "host"]
+    parts = sys.argv[1:] or ["physics", "views", "host", "learner",
+                             "learner-4096"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -226,6 +287,10 @@ def main():
               % (cs.LANES, json.dumps({k: round(v, 3)
                                        for k, v in host.items()}), card),
               flush=True)
+    if "learner" in parts:
+        learner_spread(dev, card, 64, 48)
+    if "learner-4096" in parts:
+        learner_spread(dev, card, 4096, 6)
     return 0
 
 

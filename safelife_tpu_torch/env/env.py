@@ -5,7 +5,8 @@ Port of ``safelife_tpu/env/env.py``: ``EnvConfig`` (``:33-53``),
 ``reset_impl`` (``:267-275``), ``_physics_batch`` (``:300-353``),
 ``_finish_one`` (``:356-419``, here over the whole batch),
 ``advance_batch`` (``:422-439``), ``step_core`` (``:442-454``),
-``_batch_obs`` (``:457-480``), ``merge_lane_reset`` (``:483-501``) and
+``_batch_obs`` (``:457-480``), ``merge_lane_reset`` (``:483-501``),
+``sample_episode_record`` and ``all_episode_records`` (``:504-550``) and
 ``step_impl`` (``:553-578``).
 
 One step, for every board in lockstep (reference
@@ -222,17 +223,53 @@ def step_core(cfg, pool, state, actions, generator):
     return _finish(cfg, state, lv, board, goals, agent_locs, cells)
 
 
+def _select_lanes(lane_done, new, old):
+    """``new`` where ``lane_done``, else ``old``: a tensor or a state
+    dataclass, merged field by field into nested dataclasses."""
+    if dataclasses.is_dataclass(old):
+        return dataclasses.replace(old, **{
+            f.name: _select_lanes(lane_done, getattr(new, f.name),
+                                  getattr(old, f.name))
+            for f in dataclasses.fields(old)})
+    shape = (lane_done.shape[0],) + (1,) * (old.dim() - 1)
+    return torch.where(lane_done.reshape(shape), new, old)
+
+
 def merge_lane_reset(lane_done, idx, fresh_fn, state):
     """Replace finished lanes with ``fresh_fn(idx)``, an unconditional
-    per-lane select (no host round trip)."""
-    fresh = fresh_fn(idx)
-    b = lane_done.shape[0]
-    merged = {}
-    for f in dataclasses.fields(state):
-        a, n = getattr(state, f.name), getattr(fresh, f.name)
-        merged[f.name] = torch.where(
-            lane_done.reshape((b,) + (1,) * (a.dim() - 1)), n, a)
-    return EnvState(**merged)
+    per-lane select (no host round trip). ``state`` is any state
+    dataclass whose fields are [B, ...] tensors or such dataclasses."""
+    return _select_lanes(lane_done, fresh_fn(idx), state)
+
+
+def sample_episode_record(pool, init_boards, state, info):
+    """One finished episode's (init, final) board pair for side-effect
+    telemetry: the first lane whose episode ended this step (lane 0, with
+    ``found`` False, when none did). ``init_boards`` are the episodes' own
+    starting boards."""
+    lane = torch.argmax(info["lane_done"].to(torch.int32)).reshape(1)
+    lane_idx = state.level_idx.index_select(0, lane)
+    return {
+        "found": info["lane_done"].any(),
+        "init_board": init_boards.index_select(0, lane)[0],
+        "final_board": state.board.index_select(0, lane)[0],
+        "num_steps": state.num_steps.index_select(0, lane)[0],
+        "spawn_prob": pool.spawn_prob.index_select(0, lane_idx)[0],
+        "level_idx": lane_idx[0],
+    }
+
+
+def all_episode_records(pool, init_boards, state, info):
+    """Every lane's (init, final) board pair, ``found`` flagging the lanes
+    whose episode ended this step."""
+    return {
+        "found": info["lane_done"],
+        "init_board": init_boards,
+        "final_board": state.board,
+        "num_steps": state.num_steps,
+        "spawn_prob": pool.spawn_prob.index_select(0, state.level_idx),
+        "level_idx": state.level_idx,
+    }
 
 
 def step(cfg, pool, state, actions, generator):

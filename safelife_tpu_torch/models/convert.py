@@ -11,6 +11,13 @@ with numpy arrays as leaves — ``SafeLifeCNN_0/Conv_{0,1,2}`` and
 
 The torch trunk flattens its feature map in flax's NHWC order, so the first
 dense layer needs no row permutation.
+
+:func:`ppo_state_from_jax` carries a whole learner across: a JAX
+``PPOState`` (``safelife_tpu/training/ppo.py:51-65``: the flax params,
+optax ``adam``'s ``ScaleByAdamState`` and ``num_steps``) becomes a
+:class:`~safelife_tpu_torch.training.ppo.PPOState` whose
+``torch.optim.Adam`` holds the same step count and moments, transposed as
+the parameters are.
 """
 
 import numpy as np
@@ -41,3 +48,37 @@ def policy_params_from_flax(tree):
     }
     return {"%s.%s" % (name, k): torch.tensor(v, dtype=torch.float32)
             for name, p in parts.items() for k, v in p.items()}
+
+
+def _adam_state(opt_state):
+    """optax ``adam``'s ``ScaleByAdamState`` (the part of the chain with
+    ``count``, ``mu`` and ``nu``)."""
+    for part in opt_state:
+        if all(hasattr(part, k) for k in ("count", "mu", "nu")):
+            return part
+    raise ValueError("no ScaleByAdamState in the optimizer state")
+
+
+def ppo_state_from_jax(pstate_tree, model):
+    """A :class:`~safelife_tpu_torch.training.ppo.PPOState` around
+    ``model`` (a ``SafeLifePolicyNetwork`` of the same shapes, on its
+    device) from a JAX ``PPOState`` with numpy (or JAX) leaves, its
+    optimizer built from ``PPOConfig()``'s learning rate."""
+    from ..training import ppo
+
+    dev = next(model.parameters()).device
+    model.load_state_dict(policy_params_from_flax(pstate_tree.params))
+    state = ppo.PPOState(model=model,
+                         optimizer=ppo.make_optimizer(ppo.PPOConfig(), model),
+                         num_steps=int(np.asarray(pstate_tree.num_steps)))
+    adam = _adam_state(pstate_tree.opt_state)
+    mu = policy_params_from_flax(adam.mu)
+    nu = policy_params_from_flax(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    for name, p in model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mu[name].to(dev),
+            "exp_avg_sq": nu[name].to(dev),
+        }
+    return state

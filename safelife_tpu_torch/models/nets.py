@@ -39,10 +39,12 @@ NUM_ACTIONS = 9
 
 
 @contextlib.contextmanager
-def _float32():
+def strict_float32():
     """Strict float32 for the network's products and convolutions, as the
     JAX package's "float32" training default: TF32 off for cuBLAS and for
-    cuDNN (which allows it for float32 convolutions by default)."""
+    cuDNN (which allows it for float32 convolutions by default). Both flags
+    are process-wide and read when an operation runs, so a learner runs its
+    loss forward, ``backward()`` and optimizer step inside this context."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -115,7 +117,7 @@ class SafeLifePolicyNetwork(nn.Module):
     def forward(self, obs):
         if self.unpack_channels is not None:
             obs = unpack_obs(obs, self.unpack_channels)
-        with _float32():
+        with strict_float32():
             x = torch.relu(self.dense(self.cnn(obs.to(torch.float32))))
             value = self.value(x)[..., 0]
             policy = torch.softmax(self.logits(x), dim=-1)

@@ -23,17 +23,23 @@ from ..env.state import pack_levels
 from ..utils.device import resolve_device
 
 
-def _policy_sample(model, obs, generator):
-    """Sample actions [B, A] from an actor-critic model's probabilities:
-    a categorical over ``log(p + 1e-30)`` by the Gumbel-max trick, with
-    uniforms from ``generator``. Agents flatten into the network batch."""
-    b, a = obs.shape[:2]
-    _, policy = model(obs.reshape((b * a,) + obs.shape[2:]))
+def sample_actions(policy, generator):
+    """int64 [N] draws from probabilities [N, 9]: a categorical over
+    ``log(p + 1e-30)`` by the Gumbel-max trick, with uniforms from
+    ``generator``."""
     logits = torch.log(policy + 1e-30)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32).reshape(b, a)
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def _policy_sample(model, obs, generator):
+    """Sample actions int32 [B, A] from an actor-critic model's
+    probabilities. Agents flatten into the network batch."""
+    b, a = obs.shape[:2]
+    _, policy = model(obs.reshape((b * a,) + obs.shape[2:]))
+    return sample_actions(policy, generator).to(torch.int32).reshape(b, a)
 
 
 @torch.no_grad()

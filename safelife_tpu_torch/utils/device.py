@@ -20,3 +20,12 @@ def resolve_device(device="cuda"):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r" % str(device))
     return dev
+
+
+def require_device(device, actual, what):
+    """Raises unless ``actual`` (the ``torch.device`` that ``what`` lives
+    on) is ``resolve_device(device)``."""
+    dev = resolve_device(device)
+    if actual.type != dev.type or dev.index not in (None, actual.index):
+        raise ValueError("%s lives on %s, not on the requested %s"
+                         % (what, actual, dev))

@@ -32,16 +32,18 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 24
     assert bad == "[]"
 
 
 def test_cuda_is_the_default_device():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
+    from safelife_tpu_torch.env import env as E, wrappers as W
     from safelife_tpu_torch.env.state import pack_levels
     from safelife_tpu_torch.io.levels import load_levels
     from safelife_tpu_torch.models.nets import SafeLifePolicyNetwork
+    from safelife_tpu_torch.training import ppo
     from safelife_tpu_torch.training.runner import benchmark
     from safelife_tpu_torch.utils.device import resolve_device
 
@@ -53,3 +55,19 @@ def test_cuda_is_the_default_device():
     with pytest.raises(RuntimeError, match="cuda"):
         benchmark(None, levels, 1)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    # The training path: each entry point raises unless asked for the CPU.
+    pool = pack_levels(levels, device="cpu")
+    cfg = E.EnvConfig(view_shape=(17, 17), output_channels=None)
+    wcfg, pcfg = W.WrapperConfig(), ppo.PPOConfig(steps_per_env=1)
+    net = SafeLifePolicyNetwork(view_shape=(17, 17), num_channels=1,
+                                device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        W.reset(cfg, wcfg, pool, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ppo.init_ppo_state(pcfg, net)
+    ws, obs = W.reset(cfg, wcfg, pool, 2, device="cpu")
+    ps = ppo.init_ppo_state(pcfg, net, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ppo.train_iteration(cfg, wcfg, pcfg, pool, ps, ws, obs,
+                            torch.Generator())
