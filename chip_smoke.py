@@ -59,6 +59,23 @@ non-zero:
    gradients within 6e-5 of their norm, then the parameters within 5% of
    the update's norm; TF32 off in every forward and backward of every
    layer on the card.
+6. The evaluation path: ``train.run_benchmark`` on the prune-spawn v1.0
+   benchmark (100 levels, spawners) with the same policy, 100 episodes in
+   one batch of 1000 steps, side effects scored with ``num_samples`` 1000
+   and logged by ``SafeLifeLogger`` into a fresh directory under ``runs/``;
+   launch counts zeroed just before and read just after (K1, K2 and K3
+   ran; in the occupancy K2 exactly the pre-steps plus 2 x 1000 times);
+   ``summarize_run`` of the log equals the returned summary within 1e-9;
+   the batch split into rollout, occupancy (device) and EMD (host). Then
+   ``batched_occupancy`` alone at 512 lanes (boards and step counts of a
+   512-lane ``run_episodes``), timed with CUDA events, launches read; 64
+   of those lanes on the card and on the CPU under the same seed words,
+   at most 100 pre-steps and 2 x 100 occupancy steps: counts bit for bit
+   and ``episode_side_effects`` of 8 of them equal.
+   Last, a 32-slot ``LevelPoolManager`` of prune-dynamic levels on the
+   card, refreshed with ``in_use`` from a live 64-lane ``env.step`` state:
+   no busy slot changes, the pool equals ``pack_levels`` of the manager's
+   levels, and pool and state round-trip through ``CheckpointManager``.
 
 Then it times each kernel form and its plain version at the shapes of the
 path that runs it (the main path's at B = 512 and 4096, the large-board
@@ -405,7 +422,8 @@ def run_main_path(dev, levels, net, card):
     rollout_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     records, summary = R.benchmark(net, levels, len(levels), env_cfg=cfg,
-                                   generator=gen, device=dev)
+                                   generator=gen, calc_side_effects=False,
+                                   device=dev)
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1256,6 +1274,365 @@ def check_learner_against_cpu(dev, tree, state, batch, card):
                              "path beyond its tolerance")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the evaluation path
+
+
+EVAL_LEVELS = "benchmarks/v1.0/prune-spawn.npz"
+#: Benchmark episodes: the 100 levels once, in one batch of 100 lanes.
+EVAL_EPISODES = 100
+EVAL_SAMPLES = 1000
+OCC_LANES = 512
+OCC_CPU_LANES = 64
+#: Pre-steps (at most) and occupancy samples of the card-vs-CPU check: the
+#: same kernel at the same shape as the full run, with fresh seed words
+#: every step, at a tenth of the CPU's time.
+OCC_CPU_STEPS = 100
+#: Card-vs-CPU lanes whose EMD is computed from both sides' counts.
+EMD_CHECK_LANES = 8
+POOL_SLOTS = 32
+POOL_LANES = 64
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """Wrap ``module``'s functions ``names`` (looked up at call time by the
+    module's own code) so that each call is timed on the host clock between
+    two ``torch.cuda.synchronize()``; yields {name: [seconds of each call]}
+    and, under ``name + ":launches"``, the kernel launches of each call."""
+    from safelife_tpu_torch import ops
+
+    record = {}
+    originals = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t0)
+            after = ops.launch_counts()
+            record.setdefault(name + ":launches", []).append(
+                {k: after[k] - before[k] for k in after
+                 if after[k] > before[k]})
+            record.setdefault(name + ":args", []).append((args, kwargs))
+            return out
+        return timed
+
+    for name, fn in originals.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def eval_bundle(levels):
+    """The evaluation bundle of a prune-spawn run: packed 25x25 views, the
+    1000-step time limit, the tasks' side-effect weights."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.loggers import SafeLifeLogger
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+    from safelife_tpu_torch.training import env_factory as F
+
+    return F.EnvBundle(
+        env_cfg=E.EnvConfig(view_shape=VIEW, output_channels=None,
+                            time_limit=STEPS),
+        wrapper_cfg=W.WrapperConfig(), pool_manager=None,
+        training_logger=SafeLifeLogger(None), se_penalty_schedule=None,
+        exit_difficulty_schedule=None, validation_levels=[],
+        benchmark_levels=levels,
+        side_effect_weights=dict(F.SIDE_EFFECT_WEIGHTS),
+        obs_channels=TRAINING_CHANNELS)
+
+
+def occupancy_launches(call_launches, call_args):
+    """K2's launches in each ``batched_occupancy`` call, and what each call
+    must launch: its pre-steps (the largest step count, at most
+    ``max_pre_steps``) plus 2 x ``num_samples``."""
+    got, want = [], []
+    for launches, (args, kwargs) in zip(call_launches, call_args):
+        if kwargs["num_samples"] != EVAL_SAMPLES:
+            raise AssertionError("the benchmark scored %d samples"
+                                 % kwargs["num_samples"])
+        steps = int(torch.as_tensor(args[2]).max())
+        want.append(min(steps, kwargs["max_pre_steps"])
+                    + 2 * kwargs["num_samples"])
+        got.append(launches.get("advance", 0))
+        other = set(launches) - {"advance"}
+        if other:
+            raise AssertionError("the occupancy launched %s" % sorted(other))
+    return got, want
+
+
+def run_evaluation_path(dev, levels, net, card):
+    """``train.run_benchmark`` on prune-spawn: EVAL_EPISODES episodes in one
+    batch, side effects scored, logged by ``SafeLifeLogger`` into a fresh
+    directory under ``runs/``. Launch counts zeroed just before and read
+    just after; the batch timed by parts."""
+    import os
+    import tempfile
+
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.loggers import summarize_run
+    from safelife_tpu_torch.training import runner as R, train as T
+
+    bundle = eval_bundle(levels)
+    os.makedirs("runs", exist_ok=True)
+    data_dir = tempfile.mkdtemp(prefix="chip-smoke-eval-", dir="runs")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    parts = ("run_episodes", "batched_occupancy", "episode_side_effects")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with timed_calls(R, parts) as rec:
+        t0 = time.perf_counter()
+        summary = T.run_benchmark(net, bundle, data_dir, gen,
+                                  num_episodes=EVAL_EPISODES, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    if summary["episodes"] != EVAL_EPISODES or len(rec["run_episodes"]) != 1:
+        raise AssertionError("the benchmark played %d episodes in %d "
+                             "batches" % (summary["episodes"],
+                                          len(rec["run_episodes"])))
+    for k, v in summary.items():
+        if not np.isfinite(v):
+            raise AssertionError("non-finite summary %s" % k)
+    for name in ("fused_actions_advance", "advance", "recenter_views"):
+        if launches[name] == 0:
+            raise AssertionError("kernel %s was never launched on the "
+                                 "evaluation path" % name)
+    for name in LARGE_PATH_FORMS:
+        if launches[name]:
+            raise AssertionError("kernel %s ran on 26x26 boards" % name)
+    got, want = occupancy_launches(rec["batched_occupancy:launches"],
+                                   rec["batched_occupancy:args"])
+    if got != want:
+        raise AssertionError("the occupancy launched K2 %s times, expected "
+                             "%s" % (got, want))
+    # prune-spawn's goals are static: the rollout launches no K2.
+    if launches["advance"] != sum(want):
+        raise AssertionError("K2 launched %d times, the occupancy %d"
+                             % (launches["advance"], sum(want)))
+    with open(os.path.join(data_dir, "benchmark-data.json")) as f:
+        logged = json.load(f)
+    if len(logged) != EVAL_EPISODES or not all(
+            "total" in e["side_effects"] for e in logged):
+        raise AssertionError("benchmark-data.json holds %d episodes"
+                             % len(logged))
+    read = summarize_run(data_dir)["benchmark-data.json"]
+    worst = max(abs(read[k] - summary[k]) for k in read)
+    if worst > 1e-9:
+        raise AssertionError("summarize_run differs from the summary by %g"
+                             % worst)
+
+    t_roll = sum(rec["run_episodes"])
+    t_occ = sum(rec["batched_occupancy"])
+    t_emd = sum(rec["episode_side_effects"])
+    log("evaluation path (train.run_benchmark, prune-spawn v1.0, %d "
+        "episodes in one batch, %d steps, num_samples %d): %.3f s = %.3f "
+        "evaluation episodes/s; rollout %.3f s, occupancy (device, K2 %d "
+        "launches = %d pre-steps + 2 x %d) %.3f s, EMD (host, %d episodes) "
+        "%.3f s, the rest %.3f s  [%s]"
+        % (EVAL_EPISODES, STEPS, EVAL_SAMPLES, wall, EVAL_EPISODES / wall,
+           t_roll, got[0], got[0] - 2 * EVAL_SAMPLES, EVAL_SAMPLES, t_occ,
+           len(rec["episode_side_effects"]), t_emd,
+           wall - t_roll - t_occ - t_emd, card))
+    log("evaluation summary prune-spawn (random policy): reward fraction "
+        "%.4f, success %.4f, mean length %.1f, side effects %.4f, score "
+        "%.3f; summarize_run(%s) within %.1e; launches %s  [%s]"
+        % (summary["reward"], summary["success"], summary["avg_length"],
+           summary["side_effects"], summary["score"], data_dir, worst,
+           json.dumps(launches), card))
+    return {"episodes_per_s": EVAL_EPISODES / wall, "wall_s": wall,
+            "rollout_s": t_roll, "occupancy_s": t_occ, "emd_s": t_emd}
+
+
+def occupancy_inputs(dev, levels, net, lanes):
+    """Initial boards, final boards, step counts and spawn probabilities of
+    a ``lanes``-lane ``run_episodes`` on ``levels`` (lane i plays level
+    i mod 100)."""
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import runner as R
+
+    pool = pack_levels(levels, device=dev)
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None, time_limit=STEPS)
+    idx = torch.arange(lanes, device=dev) % pool.num_levels
+    out = R.run_episodes(cfg, pool, net, idx,
+                         torch.Generator(device=dev).manual_seed(21), STEPS)
+    return (pool.board.index_select(0, idx), out["final_board"],
+            out["final_steps"], pool.spawn_prob.index_select(0, idx))
+
+
+def check_occupancy(dev, levels, net, card):
+    """``batched_occupancy`` alone at OCC_LANES lanes, timed with CUDA events
+    and its launches read; then OCC_CPU_LANES of those lanes on the card
+    and on the CPU under the same seed words, OCC_CPU_STEPS pre-steps at
+    most and OCC_CPU_STEPS samples: counts bit for bit, and
+    ``episode_side_effects`` of EMD_CHECK_LANES of them equal."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env.env import seed_words
+    from safelife_tpu_torch.training import runner as R
+
+    init, final, steps, sp = occupancy_inputs(dev, levels, net, OCC_LANES)
+    n_seeds = STEPS + 2 * EVAL_SAMPLES
+    gen = torch.Generator(device=dev).manual_seed(22)
+    seeds = seed_words(gen, n_seeds, dev)
+    kw = dict(num_samples=EVAL_SAMPLES, max_pre_steps=STEPS)
+    R.batched_occupancy(init[:8], final[:8], steps[:8], sp[:8], None,
+                        num_samples=2, max_pre_steps=2, seeds=seeds)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ms, (inaction, action) = event_ms(lambda: R.batched_occupancy(
+        init, final, steps, sp, None, seeds=seeds, **kw))
+    launches = ops.launch_counts()
+    n_pre = min(int(steps.max()), STEPS)
+    if launches["advance"] != n_pre + 2 * EVAL_SAMPLES or any(
+            v for k, v in launches.items() if k != "advance"):
+        raise AssertionError("batched_occupancy launched %s, expected K2 "
+                             "%d times" % (launches,
+                                           n_pre + 2 * EVAL_SAMPLES))
+    for occ in (inaction, action):
+        if occ.shape != init.shape + (8,) or occ.dtype != torch.int32 \
+                or int(occ.min()) < 0 or int(occ.max()) > EVAL_SAMPLES:
+            raise AssertionError("occupancy counts out of range")
+    log("batched_occupancy at %d lanes (%d pre-steps + 2 x %d occupancy "
+        "steps, 26x26): %.3f ms (CUDA events), %.2f us a K2 step; "
+        "launches %s  [%s]"
+        % (OCC_LANES, n_pre, EVAL_SAMPLES, ms,
+           1e3 * ms / launches["advance"], json.dumps(launches), card))
+
+    n = OCC_CPU_LANES
+    n_cmp = OCC_CPU_STEPS + 2 * OCC_CPU_STEPS
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        args = [x[:n].to(d) for x in (init, final, steps, sp)]
+        occ = R.batched_occupancy(*args, None, seeds=seeds[:n_cmp].to(d),
+                                  num_samples=OCC_CPU_STEPS,
+                                  max_pre_steps=OCC_CPU_STEPS)
+        sides.append([x.cpu().numpy() for x in occ])
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        sides[-1].append(time.perf_counter() - t0)
+    (ci, ca, card_s), (hi, ha, cpu_s) = sides
+    if not (np.array_equal(ci, hi) and np.array_equal(ca, ha)):
+        raise AssertionError("occupancy counts on the card differ from the "
+                             "CPU path")
+    host = [x[:n].cpu().numpy() for x in (init, final, steps, sp)]
+    worst = 0.0
+    for lane in range(EMD_CHECK_LANES):
+        res = [R.episode_side_effects(
+            host[0][lane], host[1][lane], int(host[2][lane]),
+            float(host[3][lane]), i[lane], a[lane], OCC_CPU_STEPS,
+            side_effect_weights={"life-green": 1.0, "spawner-yellow": 2.0})
+            for i, a in ((ci, ca), (hi, ha))]
+        if set(res[0]) != set(res[1]):
+            raise AssertionError("side-effect types differ")
+        for k in res[0]:
+            worst = max(worst, float(np.abs(np.subtract(res[0][k],
+                                                        res[1][k])).max()))
+    if worst:
+        raise AssertionError("episode_side_effects differ by %g" % worst)
+    log("occupancy on the card vs the CPU path (%d lanes, at most %d "
+        "pre-steps + 2 x %d occupancy steps, the same %d seed words): counts "
+        "bit for bit (%d occupied cell-colours), episode_side_effects of %d "
+        "lanes equal; %.1f s on the card, %.1f s on the CPU"
+        % (n, OCC_CPU_STEPS, OCC_CPU_STEPS, n_cmp,
+           int((ci > 0).sum() + (ca > 0).sum()), EMD_CHECK_LANES, card_s,
+           cpu_s))
+    return ms
+
+
+class _LevelList:
+    """An iterator over a list of levels (no worker processes)."""
+
+    def __init__(self, levels):
+        self.levels = list(levels)
+
+    def __next__(self):
+        if not self.levels:
+            raise StopIteration
+        return self.levels.pop(0)
+
+
+def check_pool_manager(dev, levels):
+    """A POOL_SLOTS-slot ``LevelPoolManager`` of prune-dynamic levels on the
+    card, fed from the rest of the 100: a live POOL_LANES-lane
+    ``env.step`` state on three quarters of the slots, a refresh with
+    ``in_use`` from it; no busy slot changes, the pool equals
+    ``pack_levels`` of the manager's levels, the state steps on, and the
+    pool and the state round-trip through ``CheckpointManager``."""
+    import dataclasses
+    import tempfile
+
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.io.iterator import LevelPoolManager
+    from safelife_tpu_torch.training.checkpoints import CheckpointManager
+
+    mgr = LevelPoolManager(_LevelList(levels), pool_size=POOL_SLOTS,
+                           device=dev)
+    pool = mgr.pool
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    live = 3 * POOL_SLOTS // 4
+    state = E.reset_batch(cfg, pool,
+                          torch.arange(POOL_LANES, device=dev) % live)
+    with torch.no_grad():
+        for _ in range(5):
+            acts = torch.randint(0, 9, (POOL_LANES, 1), generator=gen,
+                                 device=dev)
+            state, *_ = E.step(cfg, pool, state, acts, gen)
+    fields = [f.name for f in dataclasses.fields(pool)
+              if isinstance(getattr(pool, f.name), torch.Tensor)]
+    before = {f: getattr(pool, f).clone() for f in fields}
+    names = [lv.name for lv in mgr._host_levels]
+    in_use = state.level_idx
+    busy = sorted(set(in_use.cpu().tolist()))
+    swapped = mgr.refresh(2 * (POOL_SLOTS - live), in_use=in_use)
+    if mgr.pool is not pool or swapped != POOL_SLOTS - live:
+        raise AssertionError("refresh swapped %d levels" % swapped)
+    for s in busy:
+        if mgr._host_levels[s].name != names[s] or any(
+                not torch.equal(getattr(pool, f)[s], before[f][s])
+                for f in fields):
+            raise AssertionError("refresh changed busy slot %d" % s)
+    ref = pack_levels(mgr._host_levels, pool.num_agents,
+                      pool.exit_locs.shape[1], device=dev)
+    for f in fields:
+        if not torch.equal(getattr(pool, f), getattr(ref, f)):
+            raise AssertionError("pool %s differs from pack_levels of the "
+                                 "manager's levels" % f)
+    with torch.no_grad():
+        state, *_ = E.step(cfg, pool, state, acts, gen)
+
+    ckpt = CheckpointManager(tempfile.mkdtemp(prefix="chip-smoke-ckpt-",
+                                              dir="runs"))
+    ckpt.save(1, {"pool": pool, "env_state": state}, {"training_steps": 1})
+    restored, extra, _ = ckpt.restore(device=dev)
+    rpool = mgr.restore_pool(restored["pool"])
+    for f in fields:
+        if not torch.equal(getattr(rpool, f), getattr(ref, f)):
+            raise AssertionError("restored pool %s differs" % f)
+    for f in dataclasses.fields(state):
+        if not torch.equal(getattr(restored["env_state"], f.name),
+                           getattr(state, f.name)):
+            raise AssertionError("restored env state %s differs" % f.name)
+    if extra != {"training_steps": 1} or rpool.board.device != pool.device:
+        raise AssertionError("checkpoint extra or device differs")
+    log("LevelPoolManager on the card: %d slots, %d live lanes on %d busy "
+        "slots, refresh swapped %d levels into free slots, no busy slot "
+        "changed, pool equals pack_levels of its levels; pool and env state "
+        "round-trip CheckpointManager exactly" % (POOL_SLOTS, POOL_LANES,
+                                                  len(busy), swapped))
+
+
 
 # ---------------------------------------------------------------------------
 
@@ -1359,6 +1736,14 @@ def main():
     # main path's 16,384-sample minibatches; at 64 lanes, others.
     for batch, state in learner_batches:
         check_learner_against_cpu(dev, tree, state, batch, card)
+
+    # Phase 6
+    prune_spawn = load_levels(EVAL_LEVELS)
+    if len(prune_spawn) != 100:
+        raise AssertionError("expected 100 prune-spawn levels")
+    run_evaluation_path(dev, prune_spawn, net, card)
+    check_occupancy(dev, prune_spawn, net, card)
+    check_pool_manager(dev, prune)
 
     # Timings at the main path's shapes (B = 512 and 4096) and at the
     # large-board path's.

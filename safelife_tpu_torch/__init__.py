@@ -13,7 +13,13 @@ Quick map:
 * :mod:`safelife_tpu_torch.ops` — the CUDA kernels and their plain versions.
 * :mod:`safelife_tpu_torch.models` — the policy network and the flax
   parameter converter.
-* :mod:`safelife_tpu_torch.training.runner` — ``run_episodes``/``benchmark``.
+* :mod:`safelife_tpu_torch.training.runner` — ``run_episodes``/``benchmark``
+  (side effects scored by :mod:`safelife_tpu_torch.side_effects`).
+* :mod:`safelife_tpu_torch.training.ppo` — the PPO training iteration.
+* :mod:`safelife_tpu_torch.training.train` — ``run_benchmark``/
+  ``run_validation``, logged by :mod:`safelife_tpu_torch.loggers`.
+* :mod:`safelife_tpu_torch.io.iterator` — the level pool manager;
+  :mod:`safelife_tpu_torch.training.checkpoints` — checkpoints.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card they raise.

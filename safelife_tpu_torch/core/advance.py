@@ -1,11 +1,14 @@
 """The cellular-automaton physics step on batched int32 tensors.
 
-Port of ``safelife_tpu/core/advance.py:53-230`` (``pack_counters``,
+Port of ``safelife_tpu/core/advance.py:53-240`` (``pack_counters``,
 ``stats_from_aggregates``, ``neighborhood_stats``, ``apply_rule``,
-``advance_board_given_spawns``, ``spawn_eligible``, fast ``advance_board``
-and ``advance_board_deterministic``). This is the plain CA: the plain
-version of the K2 kernel's body (``ops/csrc/ca.cuh``) and what the CPU path
-runs.
+``advance_board_given_spawns``, ``spawn_eligible``, fast ``advance_board``,
+``advance_board_deterministic`` and ``advance_board_nstep``) and
+``:267-290`` (``life_occupancy``). Up to ``advance_board`` this is the
+plain CA: the plain version of the K2 kernel's body (``ops/csrc/ca.cuh``)
+and what the CPU path runs. ``advance_board_nstep`` and ``life_occupancy``
+take one K2 launch (``ops.advance``) a step, under seed words drawn once
+by the caller.
 
 The rule (reference ``advance_board.c:94-124``) in terms of the toroidal
 3x3 neighbourhood, self included: ``count`` alive cells; the OR of the
@@ -135,3 +138,59 @@ def advance_board(board, spawn_prob, generator):
     if thresh.ndim > 0:
         thresh = thresh[..., None, None]
     return advance_board_given_spawns(board, u < thresh)
+
+
+def _flat_batch(board, spawn_prob):
+    """(boards int32 [B, H*W], spawn_prob float32 [B], h, w) for
+    ``ops.advance`` from boards [..., H, W] and a spawn probability that
+    broadcasts to their leading dims."""
+    h, w = board.shape[-2:]
+    flat = board.reshape(-1, h * w).contiguous()
+    sp = torch.as_tensor(spawn_prob, dtype=torch.float32, device=board.device)
+    sp = sp.expand(board.shape[:-2]).reshape(-1).contiguous()
+    return flat, sp, h, w
+
+
+def advance_board_nstep(board, spawn_prob, seeds, stochastic=True):
+    """Advance ``len(seeds)`` physics steps, returning the final board
+    (reference ``advance_board.c:128-149``). Step ``t`` is one
+    ``ops.advance`` (K2 on CUDA, its plain version on the CPU) under the
+    seed words ``seeds[t]``.
+
+    board int32 [..., H, W]; spawn_prob a float or float32 broadcastable to
+    the leading dims; seeds int32 [n_steps, 2] on the board's device. With
+    ``stochastic=False`` spawners never fire (exact on spawner-free boards).
+    """
+    from .. import ops
+
+    flat, sp, h, w = _flat_batch(board, spawn_prob)
+    for seed in seeds:
+        flat = ops.advance(flat, sp, seed, h=h, w=w, stochastic=stochastic)
+    return flat.reshape(board.shape)
+
+
+#: ``cell & _FREE_LIFE_KEY`` is ``ALIVE | color << COLOR_BIT`` exactly when
+#: the cell is free life (alive, not agent, exit or frozen) of that colour.
+_FREE_LIFE_KEY = C.ALIVE | C.AGENT | C.EXIT | C.FROZEN | C.COLORS
+
+
+def life_occupancy(board, spawn_prob, seeds, stochastic=True):
+    """Advance ``len(seeds)`` steps as :func:`advance_board_nstep`,
+    counting for every cell and colour how many of the advanced boards had
+    free life of that colour there: alive and not agent, exit or frozen
+    (reference ``life_occupancy`` + ``accumulate_cell_types``,
+    ``advance_board.c:153-189``).
+
+    Returns int32 [..., H, W, 8].
+    """
+    from .. import ops
+
+    flat, sp, h, w = _flat_batch(board, spawn_prob)
+    targets = C.ALIVE | (torch.arange(8, dtype=torch.int32,
+                                      device=board.device) << C.COLOR_BIT)
+    acc = torch.zeros(flat.shape + (8,), dtype=torch.int32,
+                      device=board.device)
+    for seed in seeds:
+        flat = ops.advance(flat, sp, seed, h=h, w=w, stochastic=stochastic)
+        acc += (flat & _FREE_LIFE_KEY)[..., None] == targets
+    return acc.reshape(board.shape + (8,))

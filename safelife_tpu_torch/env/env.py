@@ -117,7 +117,7 @@ def reset(cfg, pool, batch_size, min_perf_fraction=1.0):
 # Step
 
 
-def _seed_words(generator, n, device):
+def seed_words(generator, n, device):
     """int32[n, 2]: two independent seed words per random stream."""
     return torch.randint(_INT32_MIN, _INT32_MAX, (n, 2), dtype=torch.int32,
                          generator=generator, device=device)
@@ -135,7 +135,7 @@ def _physics_batch(cfg, lv, state, actions, generator):
     evolve_goals = not lv.all_goals_static
     stochastic = not lv.spawner_free
     if stochastic:
-        seed = _seed_words(generator, 2, state.board.device)
+        seed = seed_words(generator, 2, state.board.device)
     else:
         seed = torch.zeros((2, 2), dtype=torch.int32,
                            device=state.board.device)
@@ -205,7 +205,7 @@ def advance_batch(boards, spawn_prob, generator, stochastic=True):
     (``safelife_tpu/env/wrappers.py:202-207``)."""
     b, h, w = boards.shape
     if stochastic:
-        seed = _seed_words(generator, 1, boards.device)[0]
+        seed = seed_words(generator, 1, boards.device)[0]
     else:
         seed = torch.zeros((2,), dtype=torch.int32, device=boards.device)
     return ops.advance(boards.reshape(b, h * w).contiguous(), spawn_prob,

@@ -3,7 +3,10 @@
 Port of ``safelife_tpu/env/state.py``: ``LaneLevel`` (``:24-56``),
 ``LevelBatch`` (``:59-114``), ``EnvState`` (``:117-141``), ``lane_level``
 (``:144-170``), ``goals_are_static`` (``:173-186``), ``_derived_fields``
-(``:189-251``) and ``pack_levels`` (``:254-340``). The packed static-goal
+(``:189-251``) and ``pack_levels`` (``:254-340``); ``level_metadata`` of
+``safelife_tpu/training/runner.py:186-208`` and the per-slot metadata of
+``safelife_tpu/io/iterator.py:444-455, :661-676`` (``slot_metadata``), read
+from the packed pool. The packed static-goal
 census rows (``row_w0``/``row_w8``) are left out: scoring uses the plain
 gather of ``core.scoring.points_base``, which gives the same points.
 
@@ -243,7 +246,36 @@ def pack_levels(levels, pad_agents=None, pad_exits=None, device="cuda"):
         host["min_performance"], host["agent_locs"], host["agent_mask"],
         host["exit_mask"])
     return LevelBatch(
-        **host, **derived,
-        all_goals_static=bool(np.all(gstatic)),
-        spawner_free=not bool(((boards_np | goals_np) & C.SPAWNING).any()),
-    )
+        **host, **derived, all_goals_static=bool(np.all(gstatic)),
+        spawner_free=not bool(((boards_np | goals_np) & C.SPAWNING).any()))
+
+
+def slot_metadata(pool, names, masks=None, min_performance=None):
+    """The record metadata of each row of ``pool`` (a :class:`LevelBatch`),
+    read in one host copy: ``names[i]``, reward_possible and reward_needed
+    summed over the agents of ``masks[i]`` (the pool's ``agent_mask`` by
+    default: team totals of multi-agent levels), and ``min_performance[i]``
+    (the pool's float32 values by default). Returns a list."""
+    avail, req, mask, mperf = (x.cpu().numpy() for x in (
+        pool.available_points, pool.required_points, pool.agent_mask,
+        pool.min_performance))
+    masks = mask if masks is None else masks
+    mperf = mperf if min_performance is None else min_performance
+    return [{"name": name,
+             "reward_possible": float(
+                 (avail[i] + scoring.POINTS_ON_LEVEL_EXIT)[masks[i]].sum()),
+             "reward_needed": int(req[i][masks[i]].sum()),
+             "min_performance": float(mperf[i])}
+            for i, name in enumerate(names)]
+
+
+def level_metadata(levels, pool):
+    """Per-level metadata of ``levels`` (packed as ``pool``), keyed by
+    index, as the JAX package's ``runner.level_metadata`` gives it: a level
+    without agents reports its first agent slot, and min_performance is
+    the level's own float."""
+    a = pool.num_agents
+    return dict(enumerate(slot_metadata(
+        pool, [lv.name or ("level-%d" % i) for i, lv in enumerate(levels)],
+        masks=[np.arange(a) < max(lv.num_agents, 1) for lv in levels],
+        min_performance=[lv.min_performance for lv in levels])))

@@ -32,11 +32,11 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 24
+    assert int(n) >= 32
     assert bad == "[]"
 
 
-def test_cuda_is_the_default_device():
+def test_cuda_is_the_default_device(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     from safelife_tpu_torch.env import env as E, wrappers as W
@@ -71,3 +71,18 @@ def test_cuda_is_the_default_device():
     with pytest.raises(RuntimeError, match="cuda"):
         ppo.train_iteration(cfg, wcfg, pcfg, pool, ps, ws, obs,
                             torch.Generator())
+
+    # The evaluation path and its pieces.
+    from safelife_tpu_torch.io.iterator import LevelPoolManager
+    from safelife_tpu_torch.side_effects import side_effect_score
+    from safelife_tpu_torch.training import train
+    from safelife_tpu_torch.training.checkpoints import CheckpointManager
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        side_effect_score(levels[0].board, levels[0].board, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LevelPoolManager(iter(levels), pool_size=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.run_benchmark(None, None, None, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CheckpointManager(str(tmp_path)).restore()
