@@ -76,6 +76,22 @@ non-zero:
    card, refreshed with ``in_use`` from a live 64-lane ``env.step`` state:
    no busy slot changes, the pool equals ``pack_levels`` of the manager's
    levels, and pool and state round-trip through ``CheckpointManager``.
+7. The trainer, after phase 6 (the procgen workers fork from a process
+   that holds a CUDA context): 8 append-still levels from 4 forked workers
+   equal 8 made in the process, byte for byte; ``build_environments`` for
+   append-still at 64 and 4096 lanes (start-up pools of 128 and 256
+   generated levels), timed, each with one ``refresh(4, in_use=...)``;
+   ``train.train_ppo`` at 4096 lanes for one chunk of 8 iterations with a
+   validation run, split into training, refresh, report and validation;
+   then the CLI in this process, ``__main__.main(["train",
+   "runs/chip-smoke-train-<pid>", "-e", "append-still", "--batch", "64",
+   "--steps", "20480", "--seed", "1", "--benchmark-episodes", "8"])``:
+   ``num_steps``, finite parameters, logs, a checkpoint, ``summarize_run``
+   equal to the returned summary; the same command to 30720 steps resumes
+   the learner, the env state and the pool; ``--run-type benchmark`` reads
+   the checkpoint back. Around each run the launch counts are zeroed and
+   read, and must equal what the code launches for the calls the run made
+   (``predicted_launches``).
 
 Then it times each kernel form and its plain version at the shapes of the
 path that runs it (the main path's at B = 512 and 4096, the large-board
@@ -1299,7 +1315,8 @@ def timed_calls(module, names):
     """Wrap ``module``'s functions ``names`` (looked up at call time by the
     module's own code) so that each call is timed on the host clock between
     two ``torch.cuda.synchronize()``; yields {name: [seconds of each call]}
-    and, under ``name + ":launches"``, the kernel launches of each call."""
+    and, under ``name + ":launches"``, ``":args"`` and ``":results"``, the
+    kernel launches, the arguments and the result of each call."""
     from safelife_tpu_torch import ops
 
     record = {}
@@ -1318,6 +1335,7 @@ def timed_calls(module, names):
                 {k: after[k] - before[k] for k in after
                  if after[k] > before[k]})
             record.setdefault(name + ":args", []).append((args, kwargs))
+            record.setdefault(name + ":results", []).append(out)
             return out
         return timed
 
@@ -1635,6 +1653,412 @@ def check_pool_manager(dev, levels):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the trainer and its CLI
+
+
+TRAINER_TASK = "append-still"
+#: Lane counts of the start-up pools: the CLI's default batch (a pool of
+#: 128 levels) and the training batch (256, the cap).
+STARTUP_LANES = (64, 4096)
+CLI_LANES = 64
+CLI_STEPS = 20480     # 2 chunks of 8 iterations of 64 lanes x 20 steps
+RESUME_STEPS = 30720  # one chunk more
+CLI_EPISODES = 8
+#: The benchmark run trains nothing: a smaller pool saves generation.
+BENCH_POOL = 32
+BIG_LANES = 4096
+WORKER_LEVELS = 8
+
+#: The trainer's functions that phase 7 times and reads launches around
+#: ("module:attribute" under safelife_tpu_torch -> label).
+TRAINER_PARTS = {
+    "training.train:train_ppo": "train_ppo",
+    "training.ppo:train_chunk": "training",
+    "io.iterator:LevelPoolManager.refresh": "refresh",
+    "io.iterator:LevelPoolManager.restore_pool": "restore_pool",
+    "training.train:_restore_latest": "restore",
+    "training.train:_report": "report",
+    "training.train:run_validation": "validation",
+    "training.train:run_benchmark": "benchmark",
+    "training.runner:run_episodes": "rollout",
+    "training.runner:batched_occupancy": "occupancy",
+    "side_effects:batched_occupancy": "occupancy",
+}
+
+
+def fresh_cli_state():
+    """What a new process starts with: the global config and the loggers'
+    class-shared stats, both empty. The runs of this phase share one
+    process, so that launch counts can be read around each."""
+    from safelife_tpu_torch.loggers import SafeLifeLogger
+    from safelife_tpu_torch.training.global_config import config
+
+    config.clear()
+    config._used.clear()
+    SafeLifeLogger.cumulative_stats.clear()
+
+
+@contextlib.contextmanager
+def trainer_parts():
+    """``timed_calls`` around every function of TRAINER_PARTS; yields
+    {label: [(seconds, launches, (args, kwargs), result) of each call]},
+    filled when the block ends."""
+    import importlib
+
+    calls = {}
+    with contextlib.ExitStack() as stack:
+        recs = []
+        for spec, label in TRAINER_PARTS.items():
+            mod, _, attr = spec.partition(":")
+            owner = importlib.import_module("safelife_tpu_torch." + mod)
+            *path, name = attr.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            recs.append((label, name,
+                         stack.enter_context(timed_calls(owner, [name]))))
+        yield calls
+        for label, name, rec in recs:
+            calls.setdefault(label, []).extend(zip(
+                rec.get(name, []), rec.get(name + ":launches", []),
+                rec.get(name + ":args", []), rec.get(name + ":results", [])))
+
+
+def predicted_launches(calls):
+    """K1-K3 launches of a trainer run, derived from the code and the calls
+    it made: K1 and K3 once an env step (``train_chunk``'s iterations x
+    steps_per_env, each rollout's ``max_steps``); K3 once more a reset
+    (``W.reset``, a rollout's reset, a restored env state); K2 once an env
+    step on a pool whose goals evolve, once a training step under the
+    inaction baseline, and in each occupancy its pre-steps (the largest
+    step count, at most ``max_pre_steps``) plus 2 x ``num_samples``."""
+    k1 = k2 = k3 = 0
+    for _, _, (args, _), _ in calls.get("training", []):
+        wcfg, pcfg, pool, n_iters = args[1], args[2], args[3], args[8]
+        steps = n_iters * pcfg.steps_per_env
+        k1 += steps
+        k3 += steps
+        k2 += (0 if pool.all_goals_static else steps) + (
+            steps if wcfg.se_baseline == "inaction" else 0)
+    for _, _, (args, _), _ in calls.get("rollout", []):
+        pool, steps = args[1], args[5]
+        k1 += steps
+        k3 += steps + 1
+        k2 += 0 if pool.all_goals_static else steps
+    for _, _, (args, kwargs), _ in calls.get("occupancy", []):
+        k2 += min(int(torch.as_tensor(args[2]).max()),
+                  kwargs["max_pre_steps"]) + 2 * kwargs["num_samples"]
+    k3 += len(calls.get("train_ppo", []))
+    k3 += sum(1 for *_, result in calls.get("restore", [])
+              if result[1] is not None)
+    return {"fused_actions_advance": k1, "advance": k2, "recenter_views": k3}
+
+
+def check_trainer_launches(what, launches, calls):
+    """The launches counted in a trainer run against predicted_launches;
+    no global-memory form on 26x26 boards. Returns the prediction."""
+    want = predicted_launches(calls)
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError("%s launched %s %d times, the code says %d"
+                                 % (what, name, n, want.get(name, 0)))
+    return want
+
+
+def part_seconds(calls, label):
+    return sum(c[0] for c in calls.get(label, []))
+
+
+def check_workers_match_serial(card):
+    """WORKER_LEVELS levels from 4 forked workers against as many made in
+    this process from the same SeedSequence: byte for byte."""
+    from safelife_tpu_torch.io.iterator import SafeLifeLevelIterator
+
+    made = []
+    for workers in (4, 0):
+        it = SafeLifeLevelIterator("random/" + TRAINER_TASK,
+                                   seed=np.random.SeedSequence(31),
+                                   num_workers=workers)
+        t0 = time.perf_counter()
+        made.append(([next(it) for _ in range(WORKER_LEVELS)],
+                     time.perf_counter() - t0))
+        it.close()
+    (forked, t_forked), (serial, t_serial) = made
+    for a, b in zip(forked, serial):
+        for k in ("board", "goals", "agent_locs", "agent_names",
+                  "points_table"):
+            if getattr(a, k).tobytes() != getattr(b, k).tobytes():
+                raise AssertionError("level %s: %s differs between workers "
+                                     "and serial generation" % (a.name, k))
+        if (a.name, a.min_performance, a.spawn_prob) != \
+                (b.name, b.min_performance, b.spawn_prob):
+            raise AssertionError("level %s differs" % a.name)
+    log("procgen: %d %s levels from 4 forked workers equal %d made in this "
+        "process byte for byte; %.3f s with the workers (their start "
+        "included), %.3f s serial, %.4f s a level  [%s]"
+        % (WORKER_LEVELS, TRAINER_TASK, WORKER_LEVELS, t_forked, t_serial,
+           t_serial / WORKER_LEVELS, card))
+
+
+def startup_pools(dev, card):
+    """``build_environments`` for TRAINER_TASK at each of STARTUP_LANES (a
+    pool of max(32, min(256, 2 x lanes)) levels from 4 forked workers, 5
+    validation levels, the benchmark archive), timed; then one
+    ``refresh(4, in_use=...)`` from a fresh ``W.reset`` state, timed, no
+    busy slot changed. Returns {lanes: (bundle, seconds)}."""
+    from safelife_tpu_torch.env import wrappers as W
+    from safelife_tpu_torch.training.env_factory import build_environments
+    from safelife_tpu_torch.training.global_config import GlobalConfig
+
+    out = {}
+    for lanes in STARTUP_LANES:
+        t0 = time.perf_counter()
+        bundle = build_environments(
+            GlobalConfig(env_type=TRAINER_TASK, seed=lanes), num_envs=lanes,
+            device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mgr = bundle.pool_manager
+        pool = mgr.pool
+        want = max(32, min(256, 2 * lanes))
+        if pool.num_levels != want or pool.board.device != dev:
+            raise AssertionError("pool of %d levels on %s, expected %d"
+                                 % (pool.num_levels, pool.board.device, want))
+        ws, _ = W.reset(bundle.env_cfg, bundle.wrapper_cfg, pool, lanes,
+                        device=dev)
+        busy = sorted(set(ws.env.level_idx.cpu().tolist()))
+        names = [lv.name for lv in mgr._host_levels]
+        t0 = time.perf_counter()
+        swapped = mgr.refresh(4, in_use=ws.env.level_idx)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        if any(mgr._host_levels[s].name != names[s] for s in busy):
+            raise AssertionError("refresh replaced a busy slot")
+        log("start-up pool %s at %d lanes: build_environments %.3f s (%d "
+            "levels from 4 forked workers, 5 validation levels, the "
+            "benchmark archive); all_goals_static %s, spawner_free %s; one "
+            "refresh(4) %.4f s, %d swapped, %d of %d slots busy  [%s]"
+            % (TRAINER_TASK, lanes, build_s, pool.num_levels,
+               pool.all_goals_static, pool.spawner_free, refresh_s, swapped,
+               len(busy), pool.num_levels, card))
+        out[lanes] = (bundle, build_s)
+    return out
+
+
+def cli_run(dev, argv, what, card):
+    """``__main__.main(argv)`` in this process, as a new process would
+    start it, with the launch counts zeroed just before and read just
+    after and the trainer's parts timed. Returns (result, calls,
+    launches, wall seconds)."""
+    from safelife_tpu_torch import __main__ as cli, ops
+
+    fresh_cli_state()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with trainer_parts() as calls:
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = check_trainer_launches(what, launches, calls)
+    log("%s: %.3f s; launches %s, derived from the calls %s  [%s]"
+        % (what, wall, json.dumps(launches), json.dumps(want), card))
+    return out, calls, launches, wall
+
+
+def check_run_dir(data_dir, out, episodes):
+    """The files of a CLI run, its logs read back by ``load_safelife_log``,
+    and the returned benchmark summary equal to ``summarize_run`` of the
+    log when it holds this run's episodes alone, else to the summary of
+    the log's last ``episodes`` records (the log accumulates over runs)."""
+    import os
+
+    from safelife_tpu_torch.loggers import load_safelife_log, summarize_run
+    from safelife_tpu_torch.training.env_factory import SIDE_EFFECT_WEIGHTS
+    from safelife_tpu_torch.training.runner import summarize_records
+
+    for name in ("training.log", "training-log.json", "benchmark-data.json"):
+        if not os.path.exists(os.path.join(data_dir, name)):
+            raise AssertionError("%s missing in %s" % (name, data_dir))
+    load_safelife_log(os.path.join(data_dir, "training-log.json"))
+    bench = load_safelife_log(os.path.join(data_dir, "benchmark-data.json"))
+    if len(bench["reward"]) < episodes:
+        raise AssertionError("benchmark-data.json holds %d episodes"
+                             % len(bench["reward"]))
+    if out.summary["episodes"] != episodes:
+        raise AssertionError("the benchmark played %d episodes"
+                             % out.summary["episodes"])
+    if len(bench["reward"]) == episodes:
+        read = summarize_run(data_dir)["benchmark-data.json"]
+    else:
+        with open(os.path.join(data_dir, "benchmark-data.json")) as f:
+            read = summarize_records(json.load(f)[-episodes:],
+                                     SIDE_EFFECT_WEIGHTS)
+    worst = max(abs(read[k] - out.summary[k]) for k in read
+                if k in out.summary)
+    if worst > 1e-9:
+        raise AssertionError("the logged benchmark differs from the summary "
+                             "by %g" % worst)
+    for k, v in out.summary.items():
+        if not np.isfinite(v):
+            raise AssertionError("non-finite benchmark %s" % k)
+
+
+def run_trainer_cli(dev, card):
+    """The CLI at CLI_LANES lanes: train CLI_STEPS steps with the final
+    benchmark; resume to RESUME_STEPS (learner, env state and pool); then
+    ``--run-type benchmark`` from the checkpoint. Returns the first run's
+    launches and timings."""
+    import os
+
+    from safelife_tpu_torch.training.checkpoints import CheckpointManager
+
+    data_dir = os.path.join("runs", "chip-smoke-train-%d" % os.getpid())
+
+    def argv(*extra):
+        return ["train", data_dir, "-e", TRAINER_TASK, "--batch",
+                str(CLI_LANES), "--seed", "1", "--benchmark-episodes",
+                str(CLI_EPISODES), *extra]
+
+    what = "CLI train at %d lanes" % CLI_LANES
+    out, calls, launches, wall = cli_run(
+        dev, argv("--steps", str(CLI_STEPS)), what, card)
+    if out.state.num_steps < CLI_STEPS:
+        raise AssertionError("trained %d steps" % out.state.num_steps)
+    if not all(bool(torch.isfinite(p).all())
+               for p in out.model.parameters()):
+        raise AssertionError("non-finite parameters")
+    ckpt = CheckpointManager(data_dir)
+    if ckpt.latest_step() != out.state.num_steps:
+        raise AssertionError("checkpoints %s" % ckpt.steps())
+    check_run_dir(data_dir, out, CLI_EPISODES)
+    t_train = part_seconds(calls, "train_ppo")
+    t_chunks = part_seconds(calls, "training")
+    t_refresh = part_seconds(calls, "refresh")
+    t_report = part_seconds(calls, "report")
+    t_bench = part_seconds(calls, "benchmark")
+    pool = out.bundle.pool_manager.pool
+    log("%s, %d steps (%d chunks): the whole command %.3f s = set-up "
+        "(build_environments) %.3f s + train_ppo %.3f s + final benchmark "
+        "(%d episodes) %.3f s; in train_ppo: chunks %.3f s, %d refreshes "
+        "%.4f s, %d reports (side-effect telemetry) %.3f s; %.0f training "
+        "env-steps/s over train_ppo, %.0f over the chunks alone; pool "
+        "all_goals_static %s, spawner_free %s; summary %s  [%s]"
+        % (what, out.state.num_steps, len(calls["training"]), wall,
+           wall - t_train - t_bench, t_train, CLI_EPISODES, t_bench,
+           t_chunks, len(calls.get("refresh", [])), t_refresh,
+           len(calls.get("report", [])), t_report,
+           out.state.num_steps / t_train, out.state.num_steps / t_chunks,
+           pool.all_goals_static, pool.spawner_free,
+           json.dumps(out.summary), card))
+    first = dict(launches=launches, wall=wall, train_ppo=t_train,
+                 chunks=t_chunks, refresh=t_refresh, report=t_report,
+                 benchmark=t_bench, steps=out.state.num_steps)
+
+    saved, _, step = ckpt.restore(device=dev)
+    out, calls, _, _ = cli_run(dev, argv("--steps", str(RESUME_STEPS)),
+                               "CLI resume to %d steps" % RESUME_STEPS, card)
+    (ws, obs, _, rstep), = [c[3] for c in calls["restore"]]
+    mgr = out.bundle.pool_manager
+    if rstep != step or obs is None or len(calls["restore_pool"]) != 1:
+        raise AssertionError("the resume restored step %s, env state %s"
+                             % (rstep, obs is not None))
+    if out.state.num_steps < RESUME_STEPS or len(calls["training"]) != 1:
+        raise AssertionError("the resume trained to %d in %d chunks"
+                             % (out.state.num_steps, len(calls["training"])))
+    if not torch.equal(ws.env.board, saved["env_state"].env.board):
+        raise AssertionError("restored env state differs")
+    # Slots that no refresh replaced since hold the checkpointed levels.
+    kept = sorted(mgr._restored_meta or {})
+    idx = torch.as_tensor(kept, dtype=torch.int64, device=dev)
+    for f in ("board", "goals", "agent_locs", "points_table"):
+        if not torch.equal(getattr(mgr.pool, f).index_select(0, idx),
+                           getattr(saved["pool"], f).index_select(0, idx)):
+            raise AssertionError("restored pool %s differs" % f)
+    log("CLI resume: restored step %d with its env state and pool (%d of "
+        "%d slots not refreshed since, equal to the checkpoint), trained "
+        "to %d in one chunk" % (rstep, len(kept), mgr.pool.num_levels,
+                                out.state.num_steps))
+
+    out, calls, _, _ = cli_run(
+        dev, argv("--run-type", "benchmark", "-x",
+                  json.dumps({"env.pool_size": BENCH_POOL})),
+        "CLI --run-type benchmark", card)
+    latest, _, _ = ckpt.restore(device=dev)
+    if out.state is not None or calls.get("training"):
+        raise AssertionError("the benchmark run trained")
+    for k, v in out.model.state_dict().items():
+        if not torch.equal(v, latest["params"][k]):
+            raise AssertionError("benchmarked parameters %s differ from the "
+                                 "checkpoint's" % k)
+    check_run_dir(data_dir, out, CLI_EPISODES)
+    log("CLI --run-type benchmark: the checkpoint at step %d read back, %d "
+        "episodes, summary %s" % (ckpt.latest_step(), CLI_EPISODES,
+                                  json.dumps(out.summary)))
+    return first
+
+
+def run_trainer_4096(dev, bundle, card):
+    """``train_ppo`` on the start-up pool at BIG_LANES lanes for one chunk
+    with ``test_interval`` one chunk's steps, so that ``run_validation``
+    runs on the card; launches read around it and the chunk split into
+    training, refresh, report and validation."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.training import train as T
+
+    chunk = 8 * 20 * BIG_LANES
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with trainer_parts() as calls:
+        t0 = time.perf_counter()
+        model, ps = T.train_ppo(bundle, total_steps=chunk,
+                                batch_size=BIG_LANES, seed=2,
+                                test_interval=chunk, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    what = "train_ppo at %d lanes" % BIG_LANES
+    want = check_trainer_launches(what, launches, calls)
+    if ps.num_steps != chunk or len(calls.get("validation", [])) != 1 \
+            or len(calls["training"]) != 1:
+        raise AssertionError("%s: %d steps, %d validations" % (
+            what, ps.num_steps, len(calls.get("validation", []))))
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        raise AssertionError("non-finite parameters")
+    summary = calls["validation"][0][3]
+    t = {k: part_seconds(calls, k)
+         for k in ("training", "refresh", "report", "validation")}
+    log("%s, one chunk of %d steps: train_ppo %.3f s = chunk (8 "
+        "iterations) %.3f s + refresh %.4f s + report (side-effect "
+        "telemetry) %.3f s + validation (%d levels, 1000 steps, side "
+        "effects) %.3f s + the rest (network, reset) %.3f s; %.0f training "
+        "env-steps/s over chunk + refresh + report, %.0f with validation; "
+        "launches %s, derived %s; validation %s  [%s]"
+        % (what, chunk, wall, t["training"], t["refresh"], t["report"],
+           len(bundle.validation_levels), t["validation"],
+           wall - sum(t.values()),
+           chunk / (t["training"] + t["refresh"] + t["report"]),
+           chunk / sum(t.values()), json.dumps(launches),
+           json.dumps(want), json.dumps(summary), card))
+
+
+def run_trainer_phase(dev, card):
+    """Phase 7: the level generator and the trainer on the card. The
+    BIG_LANES run trains on its start-up pool's bundle before the CLI runs,
+    each of which starts from a fresh process state."""
+    fresh_cli_state()
+    check_workers_match_serial(card)
+    bundles = startup_pools(dev, card)
+    try:
+        run_trainer_4096(dev, bundles[BIG_LANES][0], card)
+        first = run_trainer_cli(dev, card)
+    finally:
+        for bundle, _ in bundles.values():
+            bundle.pool_manager.close()
+    return first, {k: v[1] for k, v in bundles.items()}
+
+
+# ---------------------------------------------------------------------------
 
 
 #: Kernel form -> (source, the TPU kernel it replaces, its kernel's name in
@@ -1745,6 +2169,10 @@ def main():
     check_occupancy(dev, prune_spawn, net, card)
     check_pool_manager(dev, prune)
 
+    # Phase 7, after phase 6: the procgen workers fork from a process that
+    # holds a CUDA context.
+    trainer, startup = run_trainer_phase(dev, card)
+
     # Timings at the main path's shapes (B = 512 and 4096) and at the
     # large-board path's.
     from safelife_tpu_torch.env.state import pack_levels
@@ -1770,6 +2198,13 @@ def main():
     profile_rollout(dev, pool, net, 4096)
     log("main path per step: %s" % json.dumps(
         {k: v / (2 * STEPS) for k, v in launches.items()}))
+    log("trainer (phase 7): start-up pool %s s at %s lanes; CLI run at %d "
+        "lanes %.3f s, train_ppo %.3f s, %.0f training env-steps/s; "
+        "launches %s  [%s]"
+        % (json.dumps(startup), json.dumps(list(startup)), CLI_LANES,
+           trainer["wall"], trainer["train_ppo"],
+           trainer["steps"] / trainer["train_ppo"],
+           json.dumps(trainer["launches"]), card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []

@@ -8,7 +8,14 @@ of ``safelife_tpu``.
 
 Quick map:
 
-* :mod:`safelife_tpu_torch.io.levels` — ``load_levels`` for ``.npz`` files.
+* ``python -m safelife_tpu_torch train DIR -e append-still`` — the
+  trainer's CLI (:mod:`safelife_tpu_torch.__main__`; ``--device cpu`` for
+  the CPU).
+* :mod:`safelife_tpu_torch.io.levels` — level files; ``load_levels`` for
+  ``.npz`` files.
+* :mod:`safelife_tpu_torch.procgen` — the level generator (the native
+  annealer of :mod:`safelife_tpu_torch.native`);
+  :mod:`safelife_tpu_torch.io.iterator` — ``SafeLifeLevelIterator``.
 * :mod:`safelife_tpu_torch.env` — ``pack_levels``, ``reset``/``step``.
 * :mod:`safelife_tpu_torch.ops` — the CUDA kernels and their plain versions.
 * :mod:`safelife_tpu_torch.models` — the policy network and the flax
@@ -20,6 +27,8 @@ Quick map:
   ``run_validation``, logged by :mod:`safelife_tpu_torch.loggers`.
 * :mod:`safelife_tpu_torch.io.iterator` — the level pool manager;
   :mod:`safelife_tpu_torch.training.checkpoints` — checkpoints.
+* :mod:`safelife_tpu_torch.training.env_factory` — ``build_environments``;
+  :mod:`safelife_tpu_torch.training.train` — ``train_ppo``.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card they raise.

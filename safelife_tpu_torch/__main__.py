@@ -1,0 +1,179 @@
+"""Command-line interface: ``python -m safelife_tpu_torch train DIR``.
+
+Port of ``safelife_tpu/__main__.py``: ``main`` with the ``train`` verb
+(``:43-66``) and a ``--device`` flag (``cuda`` unless ``cpu`` is asked
+for), ``_confirm_data_dir`` (``:124-159``) and ``cmd_train``
+(``:162-265``) for one process. ``--algo dqn`` raises until the Q network
+is ported (ROADMAP.md queue 1 item 4); the verbs ``print``, ``play``,
+``new``, ``render`` and ``bench`` and ``--wandb`` are not ported (item 9).
+"""
+
+import argparse
+import json
+import logging
+import os
+import sys
+import types
+
+
+def main(argv=None):
+    """Parse ``argv`` and run the verb. Returns what the verb returns."""
+    parser = argparse.ArgumentParser(prog="safelife_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_train = sub.add_parser("train", help="train an agent")
+    p_train.add_argument("data_dir", nargs="?", default=None,
+                         help="directory for logs/checkpoints")
+    p_train.add_argument("--algo", choices=("ppo", "dqn"), default="ppo")
+    p_train.add_argument("-e", "--env-type", default="append-still")
+    p_train.add_argument("--steps", type=float, default=6e6)
+    p_train.add_argument("--batch", type=int, default=64)
+    p_train.add_argument("--seed", type=int, default=None)
+    p_train.add_argument("--benchmark-episodes", type=int, default=1000)
+    p_train.add_argument("--skip-benchmark", action="store_true")
+    p_train.add_argument("-x", "--extra-params", default=None, help=(
+        "JSON dict of config overrides, e.g. "
+        "'{\"ppo.gamma\": 0.99, \"side_effect.penalty\": 0.5}'"))
+    p_train.add_argument("--run-type", default="train",
+                         choices=("train", "benchmark", "inspect"),
+                         help="'benchmark' evaluates the latest checkpoint "
+                              "in data_dir without training; 'inspect' "
+                              "builds the environments and drops into an "
+                              "interactive shell")
+    p_train.add_argument("--port", type=int, default=None,
+                         help="launch tensorboard on this port")
+    p_train.add_argument("--device", choices=("cuda", "cpu"),
+                         default="cuda",
+                         help="where the environment and the learner run "
+                              "(default: the CUDA card)")
+
+    args = parser.parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    return cmd_train(args)
+
+
+def _confirm_data_dir(data_dir):
+    """Ask before reusing an existing training directory.
+
+    Parity: start-training.py:126-140 — overwrite / append / abort, with
+    ``tmp*``-named directories overwritten without asking. Runs without a
+    tty (schedulers, tests) append: checkpoints resume and logs
+    accumulate.
+    """
+    import shutil
+
+    data_dir = os.path.realpath(data_dir)
+    if not os.path.exists(data_dir):
+        return
+    if os.path.basename(data_dir).startswith("tmp"):
+        response = "overwrite"
+    elif not sys.stdin.isatty():
+        # Before setup_logging configures handlers, so not a logger call.
+        print("'%s' already exists; appending to it (no tty to ask)"
+              % data_dir, file=sys.stderr)
+        return
+    else:
+        print("The directory '%s' already exists." % data_dir)
+        response = None
+        while response not in ("overwrite", "append", "abort"):
+            try:
+                response = input("(overwrite / append / abort) > ").strip()
+            except EOFError:  # stdin closed at the prompt
+                response = "abort"
+    if response == "overwrite":
+        print("Overwriting old data.")
+        shutil.rmtree(data_dir)
+    elif response == "abort":
+        print("Aborting.")
+        sys.exit(0)
+
+
+def cmd_train(args):
+    """Train (or benchmark, or inspect) on ``args.device``. Returns a
+    namespace of the run's ``bundle``, the ``model``, the PPO ``state``
+    (None unless trained) and the final benchmark's ``summary`` (None when
+    skipped)."""
+    import torch
+
+    from .training import train as T
+    from .training.env_factory import build_environments
+    from .training.global_config import config
+    from .training.logging_setup import setup_logging
+    from .utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if args.algo == "dqn":
+        raise NotImplementedError(
+            "--algo dqn: the Q network and DQN are not ported yet "
+            "(ROADMAP.md queue 1 item 4)")
+    if args.data_dir and args.run_type == "train":
+        _confirm_data_dir(args.data_dir)
+
+    setup_logging(args.data_dir)
+    if args.extra_params:
+        config.update(json.loads(args.extra_params))
+    config["env_type"] = args.env_type
+    config["run_type"] = args.run_type
+    config.setdefault("run_type", args.run_type)  # mark as consumed
+    if args.seed is not None:
+        config["seed"] = args.seed
+
+    tb_proc = None
+    if args.port and args.data_dir:
+        import subprocess
+        try:
+            tb_proc = subprocess.Popen(
+                ["tensorboard", "--logdir", args.data_dir,
+                 "--port", str(args.port)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        except OSError as exc:
+            logging.getLogger(__name__).warning(
+                "could not launch tensorboard (%s); continuing without it",
+                exc)
+
+    bundle = None
+    try:
+        bundle = build_environments(config, data_dir=args.data_dir,
+                                    num_envs=args.batch, device=dev)
+        out = types.SimpleNamespace(bundle=bundle, model=None, state=None,
+                                    summary=None)
+        if args.run_type == "inspect":
+            # Parity: start-training.py:282-285 — envs and config built,
+            # then an interactive shell.
+            ns = {"bundle": bundle, "config": config, "torch": torch,
+                  "T": T}
+            try:
+                from IPython import embed
+                embed(user_ns=ns)
+            except ImportError:
+                import code
+                code.interact(
+                    banner="safelife_tpu_torch inspect shell: bundle, "
+                           "config, torch, T", local=ns)
+            return out
+        if args.run_type == "benchmark":
+            out.model = T.load_for_eval(args.algo, bundle, args.data_dir,
+                                        device=dev)
+        else:
+            out.model, out.state = T.train_ppo(
+                bundle, total_steps=args.steps, batch_size=args.batch,
+                seed=args.seed or 0, data_dir=args.data_dir, device=dev)
+        if not args.skip_benchmark and (bundle.benchmark_levels
+                                        or bundle.validation_levels):
+            out.summary = T.run_benchmark(
+                out.model, bundle, args.data_dir,
+                torch.Generator(device=dev).manual_seed(args.seed or 0),
+                num_episodes=args.benchmark_episodes, device=dev)
+        config.check_for_unused()
+        return out
+    finally:
+        if tb_proc is not None:
+            tb_proc.terminate()
+        if bundle is not None:
+            bundle.pool_manager.close()  # the procgen workers
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,29 @@
-"""The training level pool, refreshed from a level iterator.
+"""Level supply: the level iterator, and the training pool it refreshes.
 
-Port of part of ``safelife_tpu/io/iterator.py``: ``LevelPoolManager`` for
-one process (``__init__`` ``:310-331``, ``close``, ``restore_pool``
-``:370-460``, ``level_meta`` ``:504-538``, ``refresh`` ``:540-705``,
-``_level_compatible`` ``:707-729``) and ``_swap_rows`` (``:822-833``).
-The level generator (``SafeLifeLevelIterator``) and the multi-host pool
-are not ported yet: the manager takes any iterator of
-:class:`~.levels.Level` objects, and uses an iterator's worker results
-only when it has them (``num_workers``, ``fill_queue``, ``results``).
+Port of ``safelife_tpu/io/iterator.py`` for one process:
+``_load_param_file`` (``:28-49``), ``load_files`` (``:52-66``),
+``_level_from_data`` (``:69-82``), ``_init_worker`` (``:85-97``),
+``SafeLifeLevelIterator`` (``:100-298``) without its ``device_batch``
+path (``:166-222``: a nonzero ``device_batch`` raises), and
+``LevelPoolManager`` (``__init__`` ``:310-331``, ``close``,
+``restore_pool`` ``:370-460``, ``level_meta`` ``:504-538``, ``refresh``
+``:540-705``, ``_level_compatible`` ``:707-729``) with ``_swap_rows``
+(``:822-833``).
+
+Levels are generated on the host with NumPy, SciPy and the native
+annealer, in forked worker processes when ``num_workers`` > 0. A worker
+never touches torch: the parent may hold a CUDA context when it forks.
+Each level draws from its own ``SeedSequence.spawn``, so equal seeds give
+the JAX package's levels byte for byte, with or without workers.
 """
 
 import dataclasses
 import logging
+import multiprocessing
+import os
+import queue
+import signal
+import threading
 
 import numpy as np
 import torch
@@ -20,12 +32,215 @@ from ..core import cells as C
 from ..env.state import (LevelBatch, goals_are_static, level_metadata,
                          pack_levels, slot_metadata)
 from ..utils.device import resolve_device
+from ..utils.rng import set_rng
+from . import levels as L
 
 logger = logging.getLogger(__name__)
 
 #: The pool's flags, fixed when it is built (``LevelBatch`` fields that are
 #: not tensors).
 _FLAGS = ("all_goals_static", "spawner_free")
+
+
+def _load_param_file(file_name):
+    import yaml
+
+    with open(file_name) as f:
+        data = yaml.safe_load(f)
+
+    # Merge with the defaults file beside the param file when one exists
+    # (so reference level trees keep their own defaults); otherwise with
+    # the shipped tree's defaults.
+    candidates = [
+        os.path.join(os.path.dirname(file_name), "_defaults.yaml"),
+        os.path.join(L.LEVEL_DIRECTORY, "random", "_defaults.yaml"),
+    ]
+    defaults = {}
+    for c in candidates:
+        if os.path.exists(c) and os.path.abspath(c) != \
+                os.path.abspath(file_name):
+            with open(c) as f:
+                defaults = yaml.safe_load(f) or {}
+            break
+    merged = {**defaults, **(data or {})}
+    for key in ("named_regions", "agent_types"):
+        merged[key] = {**defaults.get(key, {}), **(data or {}).get(key, {})}
+    return merged
+
+
+def load_files(paths):
+    """Resolve paths into [(name, kind, data)] entries; kind is 'procgen'
+    or 'static'."""
+    if not paths:
+        return [[None, "procgen", {}]]
+    out = []
+    for file_name in L.find_files(*paths):
+        if file_name.endswith((".yaml", ".json")):
+            out.append([file_name, "procgen", _load_param_file(file_name)])
+        else:
+            for lv in L.load_levels_npz(file_name):
+                name = os.path.join(file_name[:-4], lv.name) \
+                    if lv.name else file_name
+                out.append([name, "static", lv])
+    return out
+
+
+def _level_from_data(file_name, data_type, data, seed=None):
+    from ..procgen.generate import gen_game
+
+    if data_type == "procgen":
+        with set_rng(np.random.default_rng(seed)):
+            lv = gen_game(**data)
+    else:
+        lv = data.copy()
+    if file_name:
+        lv.name = os.path.basename(str(file_name)).replace(".yaml", "") \
+            .replace(".json", "")
+        if seed is not None and getattr(seed, "spawn_key", None):
+            lv.name += "-e" + str(seed.spawn_key[-1])
+    return lv
+
+
+def _init_worker():
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    # If the parent dies (even by SIGKILL), the kernel kills this worker
+    # too: an orphaned worker holds the parent's pipes open and can wedge
+    # whatever waits for their end.
+    try:
+        import ctypes
+
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass
+
+
+class SafeLifeLevelIterator:
+    """Yields :class:`~.levels.Level` objects from level files or procgen
+    specs (reference ``safelife/level_iterator.py``): path resolution with
+    the level-directory fallback, forked workers that generate ahead,
+    one ``SeedSequence.spawn`` a level, the ``distinct_levels`` cache and
+    the ``get_next_parameters`` hook of the curricula."""
+
+    def __init__(self, *paths, repeat_levels=None, distinct_levels=None,
+                 num_workers=0, max_queue=10, seed=None, device_batch=0):
+        if device_batch:
+            raise NotImplementedError(
+                "device-batched level generation (device_batch) is not "
+                "ported yet (ROADMAP.md queue 1 item 8)")
+        self.file_data = load_files(paths)
+        self.level_cache = []
+
+        if repeat_levels is None:
+            repeat_levels = any(d[1] == "procgen" for d in self.file_data)
+        self.repeat_levels = repeat_levels
+        self.distinct_levels = distinct_levels
+        self.num_workers = num_workers
+        self.max_queue = max_queue if num_workers > 0 else 1
+        self.results = None
+        self.pool = None
+        self.idx = 0
+        self.seed(seed)
+
+    def seed(self, seed):
+        if not isinstance(seed, np.random.SeedSequence):
+            seed = np.random.SeedSequence(seed)
+        self._seed = seed
+
+    def get_next_parameters(self):
+        """Parameters for the next level; override for curricula."""
+        return self.file_data[self.idx % len(self.file_data)]
+
+    def fill_queue(self):
+        if self.results is None:
+            self.results = queue.deque(maxlen=self.max_queue)
+        if self.num_workers > 0 and self.pool is None:
+            # Forked workers (spawn would run __main__ again in each). The
+            # parent may hold a CUDA context; generation is NumPy and the
+            # annealer only, and close() kills a wedged worker.
+            self.pool = multiprocessing.get_context("fork").Pool(
+                processes=self.num_workers, initializer=_init_worker)
+        while len(self.results) < self.max_queue:
+            if self.distinct_levels is not None \
+                    and self.idx >= self.distinct_levels:
+                break
+            if not self.repeat_levels and self.idx >= len(self.file_data):
+                break
+            data = self.get_next_parameters()
+            if data is None:
+                break
+            self.idx += 1
+            kwargs = {"seed": self._seed.spawn(1)[0]}
+            if self.num_workers > 0:
+                result = self.pool.apply_async(
+                    _level_from_data, data, kwargs)
+            else:
+                result = _level_from_data(*data, **kwargs)
+            self.results.append((data, result))
+
+    def close(self):
+        """Terminate the worker processes (idempotent).
+
+        Terminate and join run under a watchdog thread: a worker wedged at
+        fork can hang ``Pool.terminate`` itself. Any worker still alive
+        after the grace period is killed by pid.
+        """
+        pool, self.pool = getattr(self, "pool", None), None
+        if pool is None:
+            return
+        workers = list(getattr(pool, "_pool", []))
+
+        def _teardown():
+            pool.terminate()
+            pool.join()
+
+        t = threading.Thread(target=_teardown, daemon=True)
+        t.start()
+        t.join(timeout=10)
+        for worker in workers:
+            if worker.is_alive():
+                try:
+                    os.kill(worker.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+
+    def __del__(self):
+        self.close()
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        if self.num_workers > 0:
+            state["pool"] = None
+            state["results"] = queue.deque(
+                [r.get() if hasattr(r, "get") else r for r in self.results],
+                maxlen=self.max_queue)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.fill_queue()
+        if not self.results and self.distinct_levels is not None:
+            if not self.repeat_levels and self.idx >= self.distinct_levels:
+                raise StopIteration
+            data = self.level_cache[self.idx % self.distinct_levels]
+            result = _level_from_data(*data)
+            self.idx += 1
+        elif not self.results:
+            raise StopIteration
+        else:
+            data, result = self.results.popleft()
+        if hasattr(result, "get"):
+            result = result.get()
+        if (self.distinct_levels is not None
+                and len(self.level_cache) < self.distinct_levels):
+            if data[1] == "procgen":
+                data = (data[0], "static", result.copy())
+            self.level_cache.append(data)
+        return result
 
 
 class LevelPoolManager:

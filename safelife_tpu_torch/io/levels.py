@@ -1,9 +1,12 @@
-"""Level loading for ``.npz`` files and archives.
+"""Level files: ``.npz`` levels and archives, and the paths of specs.
 
-Port of ``safelife_tpu/io/levels.py``: ``Level`` (``:35-66``),
-``level_from_data`` (``:69-122``), ``load_levels_npz`` (``:145-157``),
-``find_files`` (``:181-213``, npz only) and ``load_levels`` (``:216-222``).
-YAML procgen specs are not handled here.
+Port of ``safelife_tpu/io/levels.py``: ``Level`` with ``copy``
+(``:35-66``), ``level_from_data`` (``:69-122``), ``level_to_data``
+(``:125-136``), ``save_level`` (``:139-142``), ``load_levels_npz``
+(``:145-157``), ``save_archive`` (``:160-178``), ``find_files``
+(``:181-213``) and ``load_levels`` (``:216-222``). ``find_files`` resolves
+``.yaml``/``.json`` procgen specs too; they are read by
+:mod:`.iterator` and generated by :mod:`..procgen`.
 
 The level files themselves stay where the JAX package ships them:
 :data:`LEVEL_DIRECTORY` points at ``safelife_tpu/levels/`` on disk, and the
@@ -48,6 +51,18 @@ class Level:
     @property
     def num_agents(self):
         return len(self.agent_locs)
+
+    def copy(self):
+        return Level(
+            board=self.board.copy(),
+            goals=self.goals.copy(),
+            agent_locs=self.agent_locs.copy(),
+            agent_names=self.agent_names.copy(),
+            points_table=self.points_table.copy(),
+            min_performance=float(self.min_performance),
+            spawn_prob=float(self.spawn_prob),
+            name=self.name,
+        )
 
 
 def level_from_data(data, name=""):
@@ -104,6 +119,26 @@ def level_from_data(data, name=""):
     )
 
 
+def level_to_data(level):
+    """Serialize a :class:`Level` to the reference's npz key set."""
+    return {
+        "board": level.board.astype(np.uint16),
+        "goals": level.goals.astype(np.uint16),
+        "agent_locs": np.asarray(level.agent_locs, np.int64),
+        "agent_names": np.asarray(level.agent_names),
+        "points_table": np.asarray(level.points_table, np.int64),
+        "min_performance": np.float64(level.min_performance),
+        "spawn_prob": np.float64(level.spawn_prob),
+        "class": "safelife.safelife_game.SafeLifeGame",
+    }
+
+
+def save_level(level, file_name):
+    if not file_name.endswith(".npz"):
+        file_name += ".npz"
+    np.savez_compressed(file_name, **level_to_data(level))
+
+
 def load_levels_npz(file_name):
     """Load one npz file → list of Levels (archives expand to many)."""
     out = []
@@ -119,11 +154,36 @@ def load_levels_npz(file_name):
     return out
 
 
-def find_files(*paths):
-    """Resolve ``.npz`` level paths: exact or glob match, then with the
-    extension appended, then directory contents; tried relative to the
-    working directory first, then to :data:`LEVEL_DIRECTORY`."""
-    dirs = [None, LEVEL_DIRECTORY]
+def save_archive(levels, file_name):
+    """Pack levels into a reference-compatible multi-level archive."""
+    all_items = []
+    max_name = 1
+    for i, lv in enumerate(levels):
+        d = level_to_data(lv)
+        name = lv.name or ("level-%03d" % i)
+        max_name = max(max_name, len(name))
+        all_items.append(list(d.items()) + [("name", name)])
+    dtype = []
+    for key, val in all_items[0][:-1]:
+        val = np.asarray(val)
+        dtype.append((key, val.dtype, val.shape))
+    dtype.append(("name", str, max_name))
+    combo = np.array(
+        [tuple(val for _, val in items) for items in all_items], dtype=dtype)
+    if not file_name.endswith(".npz"):
+        file_name += ".npz"
+    np.savez_compressed(file_name, levels=combo)
+
+
+def find_files(*paths, file_types=("npz", "yaml", "json"), level_dirs=()):
+    """Resolve level paths with glob support and level-directory fallback.
+
+    The reference's resolution order (``level_iterator.py:23-77``):
+    exact/glob match first, then with appended extensions, then directory
+    contents; tried relative to the working directory first, then each of
+    ``level_dirs``, then :data:`LEVEL_DIRECTORY`.
+    """
+    dirs = [None] + list(level_dirs) + [LEVEL_DIRECTORY]
     out = []
     for path in paths:
         found = None
@@ -132,15 +192,16 @@ def find_files(*paths):
                  else os.path.abspath(os.path.expanduser(path)))
             candidates = sorted(
                 f for f in _glob.glob(p, recursive=True)
-                if os.path.isfile(f) and f.endswith(".npz"))
+                if os.path.isfile(f) and f.rsplit(".", 1)[-1] in file_types)
             if not candidates:
-                candidates = sorted(
-                    f for f in _glob.glob(p + ".npz", recursive=True)
-                    if os.path.isfile(f))
+                for ext in file_types:
+                    candidates += sorted(
+                        f for f in _glob.glob(p + "." + ext, recursive=True)
+                        if os.path.isfile(f))
             if not candidates and os.path.isdir(p):
                 candidates = sorted(
                     os.path.join(p, f) for f in os.listdir(p)
-                    if f.endswith(".npz"))
+                    if f.rsplit(".", 1)[-1] in file_types)
             if candidates:
                 found = candidates
                 break
@@ -150,9 +211,10 @@ def find_files(*paths):
     return out
 
 
-def load_levels(*paths):
-    """Load every level reachable from the given ``.npz`` paths."""
+def load_levels(*paths, level_dirs=()):
+    """Load every level reachable from the given paths (``.npz`` only: YAML
+    files are procgen specs, generated through :mod:`.iterator`)."""
     out = []
-    for f in find_files(*paths):
+    for f in find_files(*paths, file_types=("npz",), level_dirs=level_dirs):
         out.extend(load_levels_npz(f))
     return out

@@ -1,30 +1,83 @@
-"""Side-effect telemetry, validation and the final benchmark of a run.
+"""Training-loop orchestration (the reference's ``start-training.py``).
 
-Port of part of ``safelife_tpu/training/train.py``:
+Port of ``safelife_tpu/training/train.py`` for PPO in one process:
+``build_model`` (``:28-56``), ``load_for_eval`` (``:59-73``),
 ``_sampled_side_effects`` (``:76-103``), ``_exhaustive_side_effects``
-(``:106-139``), ``_summarize_se_map`` (``:142-151``), ``run_validation``
-(``:576-585``) and ``run_benchmark`` (``:588-604``). The training loop
-(``train_ppo``), its resume logic and the CLI need the level generator,
-which is not ported yet.
+(``:106-139``), ``_summarize_se_map`` (``:142-151``),
+``_maybe_record_best_episode`` (``:161-181``), ``_restore_latest``
+(``:184-262``), ``train_ppo`` (``:265-446``, without the mesh; its report
+is :func:`_report` here), ``run_validation`` (``:576-585``) and
+``run_benchmark`` (``:588-604``). ``train_dqn`` waits for the Q network
+(ROADMAP.md queue 1 item 4).
 
-Where the JAX package takes (``model``, ``params``, ``key``), these take
-the network, which holds its parameters, and a ``torch.Generator``.
+Around the PPO iteration (:mod:`.ppo`, kernels K1-K3 on CUDA) the loop
+runs host-side control: schedules, reports with side-effect telemetry,
+validation, checkpoints (every 100k steps, the last 3 kept), level-pool
+refreshes that never touch a slot a live lane is on. Where the JAX package
+takes (``model``, ``params``, ``key``), these take the network, which
+holds its parameters, and a ``torch.Generator`` on the run's device.
 """
 
+import dataclasses
 import logging
+import time
 
 import numpy as np
 import torch
 
-from ..loggers import SafeLifeLogger, summarize_run
+from ..env import env as E, wrappers as W
+from ..loggers import EpisodeCollector, SafeLifeLogger, summarize_run
+from ..models.nets import SafeLifePolicyNetwork
 from ..side_effects import side_effect_score, weighted_side_effect_total
 from ..utils.device import resolve_device
-from . import runner
+from . import ppo, runner
+from .checkpoints import CheckpointManager
+from .global_config import build_config, config
 
 logger = logging.getLogger(__name__)
 
 #: Occupancy steps of the training-time side-effect telemetry.
 TELEMETRY_SAMPLES = 1000
+
+
+def build_model(bundle, algo="ppo", device="cuda"):
+    """The policy network for the bundle's packed views, on ``device``.
+
+    Only PPO's network in strict float32 with torch's own layer init is
+    ported: ``algo="dqn"``, a ``train.precision`` other than float32
+    (ROADMAP.md queue 1 items 4, 5) and ``train.torch_init: false`` (the
+    JAX package's flax init) raise.
+    """
+    if algo != "ppo":
+        raise NotImplementedError(
+            "algo %r: the Q network and DQN are not ported yet (ROADMAP.md "
+            "queue 1 item 4)" % algo)
+    precision = config.setdefault("train.precision", "float32")
+    if precision != "float32":
+        raise NotImplementedError(
+            "train.precision %r is not ported yet (ROADMAP.md queue 1 item "
+            "5)" % precision)
+    if not config.setdefault("train.torch_init", True):
+        raise ValueError("train.torch_init: false asks for flax's init; the "
+                         "port has torch's own layer init only")
+    return SafeLifePolicyNetwork(
+        view_shape=bundle.env_cfg.view_shape,
+        unpack_channels=bundle.obs_channels, device=device)
+
+
+def load_for_eval(algo, bundle, data_dir, device="cuda"):
+    """The network with the latest checkpoint's parameters, for benchmark
+    runs (reference ``start-training.py:276-285``)."""
+    if not data_dir:
+        raise ValueError("benchmark run type needs a data_dir with "
+                         "checkpoints")
+    model = build_model(bundle, algo, device=device)
+    state, _, step = CheckpointManager(data_dir).restore(device=device)
+    if state is None:
+        raise FileNotFoundError("no checkpoints under %s" % data_dir)
+    model.load_state_dict(state["params"])
+    logger.info("benchmarking checkpoint at step %s", step)
+    return model
 
 
 def _sampled_side_effects(ep_samples, bundle, generator):
@@ -92,6 +145,218 @@ def _summarize_se_map(se_map):
         fracs.append(float(emd) / max(float(inaction_total), 1.0))
     return {"side_effects_mean": float(np.mean(fracs)),
             "side_effects_episodes": float(len(fracs))}
+
+
+def _maybe_record_best_episode(bundle, model, env_cfg, pool, generator):
+    """When the curriculum records a new best of a stage, log one episode
+    of that stage with the current policy, its history included (reference
+    ``CurricularLevelIterator.record_video``, ``env_factory.py:148-152``)."""
+    it = bundle.pool_manager.iterator
+    pop = getattr(it, "pop_best_improvement", None)
+    if pop is None:
+        return
+    best = pop()
+    if best is None or bundle.training_logger.logdir is None:
+        return
+    stage, perf = best
+    idx = next(
+        (i for i, lv in enumerate(bundle.pool_manager._host_levels)
+         if it._stage_key(lv.name or "") == stage), 0)
+    history, vstats = runner.record_episode_history(
+        env_cfg, pool, model, idx, generator, env_cfg.time_limit)
+    bundle.training_logger.log_episode(
+        {"level_name": "best-%s-%.3f" % (stage, perf), **vstats},
+        history=history)
+
+
+def _leaf_shapes(obj):
+    """Sorted (shape, dtype) of every tensor of a (nested) dataclass."""
+    if dataclasses.is_dataclass(obj):
+        return sorted(x for f in dataclasses.fields(obj)
+                      for x in _leaf_shapes(getattr(obj, f.name)))
+    if isinstance(obj, torch.Tensor):
+        return [(tuple(obj.shape), str(obj.dtype))]
+    return []
+
+
+def _restore_latest(ckpt, pstate, ws, bundle, device):
+    """Restore the latest checkpoint into a training loop.
+
+    The learner (parameters, Adam state, ``num_steps``) is restored in
+    place. The env state and the level pool its lanes index into are
+    restored together when the saved env state has this run's shapes;
+    otherwise (batch size or wrapper changed) the run resumes the learner
+    only, with fresh episodes and levels.
+
+    Returns ``(ws, obs, extra, step)``: ``obs`` is None unless the env
+    state was restored, ``step`` None when there is no checkpoint.
+    """
+    state, extra, step = ckpt.restore(device=device)
+    if state is None:
+        return ws, None, None, None
+    pstate.model.load_state_dict(state["params"])
+    if "opt_state" in state:
+        opt = state["opt_state"]
+        # Adam keeps its step counts on the host (not capturable).
+        for s in opt["state"].values():
+            s["step"] = s["step"].cpu()
+        pstate.optimizer.load_state_dict(opt)
+    pstate.num_steps = int(state["num_steps"])
+    obs = None
+    saved = state.get("env_state")
+    if saved is not None and _leaf_shapes(saved) != _leaf_shapes(ws):
+        logger.warning(
+            "checkpoint env state does not match this run's shapes "
+            "(batch size or wrapper config changed); resuming learner "
+            "state only with fresh episodes and levels")
+    elif saved is not None:
+        if "pool" in state:
+            pool = bundle.pool_manager.restore_pool(state["pool"])
+        else:
+            pool = bundle.pool_manager.pool
+            logger.warning(
+                "checkpoint has env state but no level pool; resumed "
+                "mid-episode lanes score against freshly generated levels")
+        ws = saved
+        obs = E._batch_obs(bundle.env_cfg, pool, ws.env)
+    logger.info("restored checkpoint at step %s", step)
+    return ws, obs, extra, step
+
+
+def _report(bundle, pstate, metrics, ep_samples, se_map, generator, rate):
+    """One report: the log line with the float64 L1 norm of the parameters
+    (``pcheck``), and the scalars with side-effect telemetry to the
+    training logger."""
+    n = pstate.num_steps
+    m = {k: float(v) for k, v in metrics.items()}
+    # One host copy of every parameter; the float64 sum on the host.
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in pstate.model.parameters()])
+    pcheck = float(np.abs(flat.cpu().numpy().astype(np.float64)).sum())
+    logger.info(
+        "n=%d: loss=%.3g entropy=%.3f reward=%.4f (%.0f steps/s) "
+        "pcheck=%.17g",
+        n, m["loss"], m["entropy"], m["reward_mean"], rate, pcheck)
+    if bundle.wrapper_cfg.exhaustive_se:
+        se = _summarize_se_map(se_map)
+    else:
+        se = _sampled_side_effects(ep_samples, bundle, generator)
+    if se is not None:
+        m.update(se)
+    bundle.training_logger.log_scalars(m, n, "ppo")
+    _maybe_record_best_episode(bundle, pstate.model, bundle.env_cfg,
+                               bundle.pool_manager.pool, generator)
+
+
+def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
+              data_dir=None, report_interval=None, test_interval=5e5,
+              checkpoint_interval=100_000, pool_refresh=4,
+              iters_per_chunk=8, device="cuda"):
+    """Train PPO to ``total_steps`` env steps on ``device``, where the
+    bundle's pool lives. Returns (model, ppo_state).
+
+    A chunk is ``iters_per_chunk`` iterations of ``batch_size`` lanes x
+    ``steps_per_env`` steps; after each, the finished episodes are logged,
+    the pool refreshed (``pool_refresh`` levels at most, never a slot a
+    live lane is on), a checkpoint saved when due, and at the report and
+    test intervals a report and a validation run. With ``data_dir`` the
+    run resumes from its latest checkpoint and saves at the end.
+    """
+    dev = resolve_device(device)
+    ppo_cfg = build_config(ppo.PPOConfig, "ppo")
+    if report_interval is None:
+        report_interval = ppo_cfg.report_interval
+    env_cfg, wcfg = bundle.env_cfg, bundle.wrapper_cfg
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    # The initial parameters draw from the default generators, seeded here
+    # and restored after.
+    with torch.random.fork_rng(
+            devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        model = build_model(bundle, "ppo", device=dev)
+    pstate = ppo.init_ppo_state(ppo_cfg, model, device=dev)
+
+    pool = bundle.pool_manager.pool
+    ws, obs = W.reset(env_cfg, wcfg, pool, batch_size,
+                      min_perf_fraction=bundle.exit_difficulty_schedule(),
+                      device=dev)
+    ckpt = data_dir and CheckpointManager(
+        data_dir, interval=checkpoint_interval)
+    if ckpt:
+        # A full resume takes the env batch (mid-episode boards) and the
+        # pool its lanes index into, so every lane scores against its own
+        # level.
+        ws, robs, extra, _ = _restore_latest(ckpt, pstate, ws, bundle, dev)
+        if robs is not None:
+            obs = robs
+            pool = bundle.pool_manager.pool
+        if extra:
+            bundle.training_logger.cumulative_stats.update(extra)
+
+    collector = EpisodeCollector(
+        bundle.training_logger,
+        level_meta=bundle.pool_manager.level_meta())
+    se_map = {}
+    steps_per_iter = ppo_cfg.steps_per_env * batch_size
+    next_report = report_interval
+    next_test = test_interval
+    t0 = time.time()
+
+    while pstate.num_steps < total_steps:
+        pool = bundle.pool_manager.pool
+        pstate, ws, obs, metrics = ppo.train_chunk(
+            env_cfg, wcfg, ppo_cfg, pool, pstate, ws, obs, generator,
+            iters_per_chunk,
+            se_penalty_coef=bundle.se_penalty_schedule(),
+            min_perf_fraction=bundle.exit_difficulty_schedule(),
+            device=dev)
+        episodes = {k: v.cpu().numpy()
+                    for k, v in metrics.pop("episodes").items()}
+        ep_samples = metrics.pop("ep_samples")
+        if wcfg.exhaustive_se:
+            # Every lane's records: rows flattened as the episode records
+            # are, so a row index names the same episode in both.
+            ep_samples = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                          for k, v in ep_samples.items()}
+            se_map = _exhaustive_side_effects(ep_samples, bundle, env_cfg,
+                                              generator)
+            collector.side_effects_fn = \
+                lambda lane, info: se_map.get(int(lane))
+        collector.observe(episodes,
+                          batch_steps=steps_per_iter * iters_per_chunk)
+        n = pstate.num_steps
+        bundle.training_logger.cumulative_stats["training_steps"] = n
+
+        # Live lanes pin the slots they are on: one [B] readback a chunk.
+        bundle.pool_manager.refresh(
+            pool_refresh, in_use=np.unique(ws.env.level_idx.cpu().numpy()))
+
+        if ckpt:
+            # ``pool`` is the pool this chunk's lanes stepped on (before
+            # the refresh): a resume pairs them again.
+            ckpt.save_if_needed(
+                n, {"params": model.state_dict(),
+                    "opt_state": pstate.optimizer.state_dict(),
+                    "num_steps": n, "env_state": ws, "pool": pool},
+                dict(bundle.training_logger.cumulative_stats))
+
+        if n >= next_report:
+            next_report = (n // report_interval + 1) * report_interval
+            _report(bundle, pstate, metrics, ep_samples, se_map, generator,
+                    n / max(time.time() - t0, 1e-9))
+
+        if bundle.validation_levels and n >= next_test:
+            next_test = (n // test_interval + 1) * test_interval
+            run_validation(model, bundle, data_dir, generator, device=dev)
+
+    if ckpt:
+        ckpt.save(pstate.num_steps,
+                  {"params": model.state_dict(),
+                   "opt_state": pstate.optimizer.state_dict(),
+                   "num_steps": pstate.num_steps, "env_state": ws,
+                   "pool": pool},
+                  dict(bundle.training_logger.cumulative_stats))
+    return model, pstate
 
 
 def run_validation(model, bundle, data_dir, generator, device="cuda"):

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of safelife_tpu_torch
-(and chip_smoke.py) pulls in neither JAX nor the JAX package, and its entry
-points refuse to run on the CPU unless asked to."""
+(and chip_smoke.py) pulls in neither JAX nor the JAX package and builds
+nothing, and its entry points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -14,16 +14,26 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, subprocess, sys
+compilers = []
+class Recorded(subprocess.Popen):
+    def __init__(self, args, *a, **k):
+        prog = os.path.basename(str(args[0] if isinstance(args, list)
+                                    else args).split()[0])
+        if prog in ("g++", "gcc", "c++", "nvcc"):
+            compilers.append(prog)
+        super().__init__(args, *a, **k)
+subprocess.Popen = Recorded
 import safelife_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     safelife_tpu_torch.__path__, "safelife_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from safelife_tpu_torch import native
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "safelife_tpu"))
-print(len(names), bad)
+print(len(names), len(compilers), native._lib, bad)
 """
 
 
@@ -31,9 +41,14 @@ def test_no_jax_and_no_reference_package_imported():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 32
+    n, started, lib, bad = out.stdout.strip().split(" ", 3)
+    # 41 modules: the 32 of PR 5, then utils.rng, native, procgen (and its
+    # regions, pattern, generate), training.global_config,
+    # training.logging_setup and __main__.
+    assert int(n) >= 41
     assert bad == "[]"
+    # Importing builds nothing: no compiler started, no library loaded.
+    assert started == "0" and lib == "None"
 
 
 def test_cuda_is_the_default_device(tmp_path):
@@ -86,3 +101,22 @@ def test_cuda_is_the_default_device(tmp_path):
         train.run_benchmark(None, None, None, None)
     with pytest.raises(RuntimeError, match="cuda"):
         CheckpointManager(str(tmp_path)).restore()
+
+    # The trainer and the CLI.
+    from safelife_tpu_torch import __main__ as cli
+    from safelife_tpu_torch.io.iterator import SafeLifeLevelIterator
+    from safelife_tpu_torch.training.env_factory import build_environments
+    from safelife_tpu_torch.training.global_config import GlobalConfig
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_environments(GlobalConfig(env_type="append-still"),
+                           num_envs=2, pool_size=2, procgen_workers=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train_ppo(None)
+    it = SafeLifeLevelIterator("random/append-still", seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LevelPoolManager(it, pool_size=2)
+    assert it.idx == 0  # nothing generated
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["train", str(tmp_path / "run"), "-e", "append-still"])
+    assert not os.path.exists(tmp_path / "run")
