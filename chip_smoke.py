@@ -92,6 +92,28 @@ non-zero:
    the checkpoint back. Around each run the launch counts are zeroed and
    read, and must equal what the code launches for the calls the run made
    (``predicted_launches``).
+8. The DQN path: ``dqn.collect_and_optimize`` on phase 5's append-spawn
+   levels with the inaction baseline, at 64 and 4096 lanes, with the Q
+   network (dueling heads of 256) on packed 25x25 views and
+   ``DQNConfig()``'s 100,000-entry replay and batch of 96, cut:
+   ``replay_initial`` to min(4096, 16 x lanes) and ``target_update_interval``
+   to min(10,000, 16 x lanes). A warm-up chunk of 32 units, each checked:
+   ``replay.idx`` grows by the valid emissions, the parameters stay while
+   the buffer is cold and move once it is warm, the target equals the
+   model right after a crossing and differs on a warm unit before one,
+   finite loss, TF32 off in every forward and backward of both networks.
+   Then one ``dqn.train_chunk`` of 32 units, launch counts zeroed just
+   before and read just after (equal to ``predicted_launches``), CUDA
+   events around its collect and optimize halves. Then 8 units at 64
+   lanes on the card and on the CPU under the same actions and sample
+   indices (one prune-dynamic level, lanes timing out after 5 steps):
+   replay and ``idx`` bit for bit, the first warm unit's loss within 1e-5
+   relative and gradients within 6e-5 of their norm. Last the CLI with
+   ``--algo dqn`` at 64 lanes into ``runs/chip-smoke-dqn-<pid>``: train
+   20,480 steps (``replay_initial`` 4096), resume to 30,720 (learner,
+   target network, Adam, env state and pool restored) and ``--run-type
+   benchmark --algo dqn``, each run's launches equal to
+   ``predicted_launches``.
 
 Then it times each kernel form and its plain version at the shapes of the
 path that runs it (the main path's at B = 512 and 4096, the large-board
@@ -1673,11 +1695,14 @@ WORKER_LEVELS = 8
 #: ("module:attribute" under safelife_tpu_torch -> label).
 TRAINER_PARTS = {
     "training.train:train_ppo": "train_ppo",
+    "training.train:train_dqn": "train_dqn",
     "training.ppo:train_chunk": "training",
+    "training.dqn:train_chunk": "dqn_training",
     "io.iterator:LevelPoolManager.refresh": "refresh",
     "io.iterator:LevelPoolManager.restore_pool": "restore_pool",
     "training.train:_restore_latest": "restore",
     "training.train:_report": "report",
+    "training.train:_report_dqn": "report",
     "training.train:run_validation": "validation",
     "training.train:run_benchmark": "benchmark",
     "training.runner:run_episodes": "rollout",
@@ -1723,18 +1748,27 @@ def trainer_parts():
                 rec.get(name + ":args", []), rec.get(name + ":results", [])))
 
 
+def training_chunks(calls):
+    """(wrapper config, pool, env steps) of each training chunk of a run:
+    PPO's ``train_chunk`` (iterations x steps_per_env) and DQN's (units x
+    steps a unit)."""
+    for _, _, (args, _), _ in calls.get("training", []):
+        yield args[1], args[3], args[8] * args[2].steps_per_env
+    for _, _, (args, _), _ in calls.get("dqn_training", []):
+        yield args[1], args[3], args[8] * args[9]
+
+
 def predicted_launches(calls):
     """K1-K3 launches of a trainer run, derived from the code and the calls
-    it made: K1 and K3 once an env step (``train_chunk``'s iterations x
-    steps_per_env, each rollout's ``max_steps``); K3 once more a reset
-    (``W.reset``, a rollout's reset, a restored env state); K2 once an env
-    step on a pool whose goals evolve, once a training step under the
-    inaction baseline, and in each occupancy its pre-steps (the largest
-    step count, at most ``max_pre_steps``) plus 2 x ``num_samples``."""
+    it made: K1 and K3 once an env step (each training chunk's env steps,
+    each rollout's ``max_steps``); K3 once more a reset (``W.reset`` of
+    ``train_ppo`` or ``train_dqn``, a rollout's reset, a restored env
+    state); K2 once an env step on a pool whose goals evolve, once a
+    training step under the inaction baseline, and in each occupancy its
+    pre-steps (the largest step count, at most ``max_pre_steps``) plus 2 x
+    ``num_samples``."""
     k1 = k2 = k3 = 0
-    for _, _, (args, _), _ in calls.get("training", []):
-        wcfg, pcfg, pool, n_iters = args[1], args[2], args[3], args[8]
-        steps = n_iters * pcfg.steps_per_env
+    for wcfg, pool, steps in training_chunks(calls):
         k1 += steps
         k3 += steps
         k2 += (0 if pool.all_goals_static else steps) + (
@@ -1747,7 +1781,7 @@ def predicted_launches(calls):
     for _, _, (args, kwargs), _ in calls.get("occupancy", []):
         k2 += min(int(torch.as_tensor(args[2]).max()),
                   kwargs["max_pre_steps"]) + 2 * kwargs["num_samples"]
-    k3 += len(calls.get("train_ppo", []))
+    k3 += len(calls.get("train_ppo", [])) + len(calls.get("train_dqn", []))
     k3 += sum(1 for *_, result in calls.get("restore", [])
               if result[1] is not None)
     return {"fused_actions_advance": k1, "advance": k2, "recenter_views": k3}
@@ -2059,6 +2093,424 @@ def run_trainer_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the DQN path
+
+
+#: Lane counts of the DQN path: the CLI's default batch and the training
+#: batch.
+DQN_LANES = (64, 4096)
+DQN_UNITS = 32  # a chunk of train_dqn
+#: The card-vs-CPU check: units of one step at 64 lanes on one prune-dynamic
+#: level whose lanes time out after 5 steps (their rings flush).
+DQN_CPU_UNITS = 8
+DQN_CPU_REPLAY = 4096
+DQN_CPU_INITIAL = 256
+
+
+def q_network(dev, seed):
+    """The Q network on packed 25x25 views, with torch's default init drawn
+    on the CPU from ``seed`` (the same parameters on every device)."""
+    from safelife_tpu_torch.models.nets import (SafeLifeQNetwork,
+                                                TRAINING_CHANNELS)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = SafeLifeQNetwork(view_shape=VIEW,
+                               unpack_channels=TRAINING_CHANNELS,
+                               device="cpu")
+    return net.to(dev)
+
+
+def dqn_cuts(lanes):
+    """The cuts of ``DQNConfig()`` that let updates and target syncs happen
+    inside the smoke: ``replay_initial`` (40,000) and, at 64 lanes,
+    ``target_update_interval`` (10,000) to 16 units' steps at most."""
+    return {"replay_initial": min(4096, 16 * lanes),
+            "target_update_interval": min(10_000, 16 * lanes)}
+
+
+def flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+@contextlib.contextmanager
+def wrapped(module, name, before=None, after=None):
+    """Call ``before(args)`` and ``after(args, result)`` around each call of
+    ``module.name`` (looked up at call time by the module's own code)."""
+    fn = getattr(module, name)
+
+    def call(*args, **kwargs):
+        if before:
+            before(args)
+        out = fn(*args, **kwargs)
+        if after:
+            after(args, out)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def dqn_checked_units(run, units):
+    """``units`` collect-and-optimize units of ``run``, each checked: the
+    replay's push count grows by the valid emissions, the parameters stay
+    put while the buffer is cold and move once it is warm, the target
+    equals the model right after a crossing and differs from it on a warm
+    unit without one, the loss is finite, and TF32 is off in every
+    forward and backward of every layer of both networks. Returns ({"cold",
+    "warm", "crossed": warm crossings: unit counts}, layer runs probed)."""
+    from safelife_tpu_torch.training import dqn as D
+
+    ds, cfg, lanes = run["ds"], run["cfg"], run["obs"].shape[0]
+    valid = []
+    counts = {"cold": 0, "warm": 0, "crossed": 0}
+    every = cfg.target_update_interval
+    with contextlib.ExitStack() as stack:
+        tf32 = stack.enter_context(tf32_probe(ds.model))
+        tf32_target = stack.enter_context(tf32_probe(ds.target_model))
+        stack.enter_context(wrapped(
+            D, "step_trajectories",
+            after=lambda _, out: valid.append(int(out[1]["valid"].sum()))))
+        for _ in range(units):
+            idx0, before = ds.replay.idx, flat_params(ds.model)
+            valid.clear()
+            m = dqn_unit(run)
+            if ds.replay.idx - idx0 != sum(valid):
+                raise AssertionError("replay.idx grew by %d, %d valid "
+                                     "emissions" % (ds.replay.idx - idx0,
+                                                    sum(valid)))
+            warm = m["replay_size"] >= cfg.replay_initial
+            moved = not torch.equal(before, flat_params(ds.model))
+            n = ds.num_steps
+            crossed = n // every > (n - run["n_steps"] * lanes) // every
+            same = torch.equal(flat_params(ds.model),
+                               flat_params(ds.target_model))
+            if moved != warm or (crossed and not same) \
+                    or (warm and not crossed and same):
+                raise AssertionError(
+                    "unit at %d steps: warm %s, parameters moved %s, "
+                    "crossed %s, target equal %s" % (n, warm, moved, crossed,
+                                                     same))
+            if not torch.isfinite(m["loss"]):
+                raise AssertionError("non-finite loss")
+            counts["warm" if warm else "cold"] += 1
+            counts["crossed"] += warm and crossed
+    runs = tf32 + tf32_target
+    if any(runs) or not tf32 or not tf32_target:
+        raise AssertionError("TF32 was allowed in %d of %d layer runs"
+                             % (sum(runs), len(runs)))
+    return counts, len(runs)
+
+
+def dqn_unit(run, actions=None, sample_idx=None):
+    """One ``collect_and_optimize`` unit of ``run``; returns its metrics."""
+    from safelife_tpu_torch.training import dqn as D
+
+    run["ds"], run["ws"], run["obs"], m = D.collect_and_optimize(
+        run["env"], run["wcfg"], run["cfg"], run["pool"], run["ds"],
+        run["ws"], run["obs"], run["gen"], run["n_steps"], actions=actions,
+        sample_idx=sample_idx, device=run["dev"])
+    return m
+
+
+def dqn_setup(dev, pool, lanes, env_cfg, wcfg, seed, **cuts):
+    """A DQN learner at full width (the Q network on packed 25x25 views,
+    ``DQNConfig()`` with ``cuts``) on ``lanes`` fresh lanes of ``pool``."""
+    from safelife_tpu_torch.env import wrappers as W
+    from safelife_tpu_torch.training import dqn as D
+
+    cfg = D.DQNConfig(**cuts)
+    run = dict(pool=pool, env=env_cfg, wcfg=wcfg, cfg=cfg, dev=dev,
+               gen=torch.Generator(device=dev).manual_seed(seed),
+               n_steps=max(cfg.optimize_interval // lanes, 1))
+    run["ds"] = D.init_dqn_state(cfg, q_network(dev, seed),
+                                 lanes * pool.num_agents, VIEW, torch.int32,
+                                 device=dev)
+    run["ws"], run["obs"] = W.reset(env_cfg, wcfg, pool, lanes, device=dev)
+    return run
+
+
+def run_dqn_path(dev, levels, lanes, card):
+    """The DQN path on append-spawn (phase 5's levels, the inaction
+    baseline) at ``lanes`` lanes: one checked warm-up chunk of DQN_UNITS
+    units (``dqn_checked_units``), then one timed ``train_chunk`` with the
+    launch counts zeroed just before and read just after, CUDA events
+    around its collect and optimize halves. Returns the timed chunk's
+    numbers."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import dqn as D
+
+    cuts = dqn_cuts(lanes)
+    run = dqn_setup(dev, pack_levels(levels, device=dev), lanes,
+                    E.EnvConfig(view_shape=VIEW, output_channels=None),
+                    W.WrapperConfig(se_baseline="inaction"), 20, **cuts)
+    ds, cfg = run["ds"], run["cfg"]
+    counts, layer_runs = dqn_checked_units(run, DQN_UNITS)
+    if not counts["cold"] or not counts["warm"] or not counts["crossed"]:
+        raise AssertionError("warm-up chunk: %s" % counts)
+
+    halves = {"collect": [], "optimize": []}
+
+    def timed(name):
+        def before(_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            halves[name].append([ev])
+
+        def after(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            halves[name][-1].append(ev)
+        return wrapped(D, name, before, after)
+
+    idx0 = ds.replay.idx
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with trainer_parts() as calls, timed("collect"), timed("optimize"):
+        t0 = time.perf_counter()
+        run["ds"], run["ws"], run["obs"], m = D.train_chunk(
+            run["env"], run["wcfg"], cfg, run["pool"], ds, run["ws"],
+            run["obs"], run["gen"], run["n_steps"], DQN_UNITS,
+            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    what = "DQN chunk at %d lanes" % lanes
+    want = check_trainer_launches(what, launches, calls)
+    if want["fused_actions_advance"] != DQN_UNITS * run["n_steps"]:
+        raise AssertionError("%s: %s" % (what, want))
+    if m["replay_size"] < cfg.replay_initial or not torch.isfinite(
+            m["loss"]) or ds.replay.idx <= idx0:
+        raise AssertionError("%s: replay %d, loss %s" % (
+            what, m["replay_size"], float(m["loss"])))
+    split = {k: sum(a.elapsed_time(b) for a, b in v)
+             for k, v in halves.items()}
+    steps = DQN_UNITS * run["n_steps"] * lanes
+    log("DQN path (append-spawn, inaction baseline; DQNConfig() with a "
+        "%d-entry replay, batch %d, cut: replay_initial %d, "
+        "target_update_interval %d) at %d lanes: warm-up chunk checked "
+        "(%d cold units, %d warm, %d warm crossings; replay.idx = valid "
+        "emissions; parameters still while cold and moving once warm; target "
+        "= model right after a crossing, != on warm units before one; TF32 "
+        "allowed in 0 of %d layer runs); timed chunk of %d units x %d step "
+        "(%d env steps) %.3f ms: collect %.3f ms, optimize %.3f ms (CUDA "
+        "events); %.0f training env-steps/s; replay %d entries, loss %.5f, "
+        "epsilon %.4f; launches %s  [%s]"
+        % (cfg.replay_size, cfg.batch_size, cuts["replay_initial"],
+           cuts["target_update_interval"], lanes, counts["cold"],
+           counts["warm"], counts["crossed"], layer_runs, DQN_UNITS,
+           run["n_steps"], steps, wall * 1e3, split["collect"],
+           split["optimize"], steps / wall, m["replay_size"],
+           float(m["loss"]), float(m["epsilon"]), json.dumps(launches),
+           card))
+    wall_us, busy = profile_window(
+        lambda: [dqn_unit(run) for _ in range(8)],
+        "8 DQN units at %d lanes" % lanes, "unit", 8, top=12)
+    return dict(lanes=lanes, wall_ms=wall * 1e3, steps=steps,
+                busy=busy / wall_us, **split)
+
+
+def check_dqn_against_cpu(dev, level, card):
+    """DQN_CPU_UNITS collect-and-optimize units at 64 lanes on the card and
+    on the CPU from the same parameters, one prune-dynamic level (no
+    spawners: the two devices' generators draw different seed words),
+    lanes timing out after 5 steps, the same numpy actions and sample
+    indices on both: replay contents and ``idx`` bit for bit; the first
+    warm unit's loss within 1e-5 relative and its gradients within 6e-5 of
+    their norm (phase 5's bounds); the parameters after the last unit
+    within 5% of the update's norm."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+
+    lanes = 64
+    rng = np.random.default_rng(21)
+    actions = rng.integers(0, 9, (DQN_CPU_UNITS, 1, lanes, 1)).astype(
+        np.int32)
+    samples = rng.integers(0, DQN_CPU_INITIAL, (DQN_CPU_UNITS, 96))
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        run = dqn_setup(d, pack_levels([level], device=d), lanes,
+                        E.EnvConfig(view_shape=VIEW, output_channels=None,
+                                    time_limit=5),
+                        W.WrapperConfig(), 21, replay_size=DQN_CPU_REPLAY,
+                        replay_initial=DQN_CPU_INITIAL)
+        start = flat_params(run["ds"].model).cpu()
+        first = None
+        for u in range(DQN_CPU_UNITS):
+            m = dqn_unit(run, torch.from_numpy(actions[u]), samples[u])
+            if first is None and m["replay_size"] >= DQN_CPU_INITIAL:
+                first = (u, float(m["loss"]), torch.cat(
+                    [p.grad.reshape(-1) for p in run["ds"].model.parameters()]
+                ).cpu().double())
+        if first is None:
+            raise AssertionError("the replay never warmed")
+        r = run["ds"].replay
+        sides.append((first, {k: getattr(r, k).cpu() for k in (
+            "obs", "action", "reward", "next_obs", "done")}, r.idx,
+            flat_params(run["ds"].model).cpu().double(),
+            time.perf_counter() - t0))
+    ((uc, lc, gc), rc, ic, pc, card_s), ((uh, lh, gh), rh, ih, ph, cpu_s) = \
+        sides
+    for k in rc:
+        if not torch.equal(rc[k], rh[k]):
+            raise AssertionError("DQN replay %s differs card vs CPU" % k)
+    loss = abs(lc - lh) / max(abs(lh), 1e-30)
+    grad = float((gc - gh).norm() / gh.norm())
+    update = float((pc - ph).norm() / (ph - start.double()).norm())
+    log("DQN on the card vs the CPU (64 lanes, %d units, one prune-dynamic "
+        "level, time limit 5, the same actions and sample indices): replay "
+        "(%d entries pushed, %d held) and idx bit for bit; first warm unit "
+        "(%d) "
+        "loss rel %.2e, gradients |dg| / |g| %.2e; parameters after %d Adam "
+        "steps |dp| / |update| %.2e; %.1f s on the card, %.1f s on the CPU"
+        "  [%s]" % (DQN_CPU_UNITS, ic, min(ic, DQN_CPU_REPLAY), uc, loss,
+                    grad, DQN_CPU_UNITS - uc, update, card_s, cpu_s, card))
+    if ic != ih or uc != uh:
+        raise AssertionError("idx %d vs %d, first warm unit %d vs %d"
+                             % (ic, ih, uc, uh))
+    if loss > LEARNER_LOSS_REL or grad > LEARNER_GRAD_NORM \
+            or update > LEARNER_UPDATE_NORM:
+        raise AssertionError("the DQN learner on the card differs from the "
+                             "CPU path beyond its tolerance")
+
+
+@contextlib.contextmanager
+def restored_learners():
+    """Snapshots of the learner (parameters, target, Adam) as each
+    ``_restore_latest`` call leaves it; yields the list."""
+    from safelife_tpu_torch.training import train as T
+
+    snaps = []
+
+    def snap(args, _):
+        learner = args[1]
+        snaps.append({
+            "params": {k: v.clone()
+                       for k, v in learner.model.state_dict().items()},
+            "target": {k: v.clone()
+                       for k, v in learner.target_model.state_dict().items()},
+            "adam": [(float(st["step"]), st["exp_avg"].clone())
+                     for st in learner.optimizer.state.values()]})
+
+    with wrapped(T, "_restore_latest", after=snap):
+        yield snaps
+
+
+def run_dqn_cli(dev, card):
+    """The CLI with ``--algo dqn`` at CLI_LANES lanes: train CLI_STEPS steps
+    with the final benchmark; resume to RESUME_STEPS (the learner, the
+    target network, Adam, the env state and the pool); then ``--run-type
+    benchmark --algo dqn``. Launches equal to what the calls derive."""
+    import os
+
+    from safelife_tpu_torch.models.nets import SafeLifeQNetwork
+    from safelife_tpu_torch.training.checkpoints import CheckpointManager
+
+    data_dir = os.path.join("runs", "chip-smoke-dqn-%d" % os.getpid())
+    cuts = json.dumps({"dqn.replay_initial": 4096,
+                       "dqn.report_interval": 4096})
+
+    def argv(*extra):
+        return ["train", data_dir, "--algo", "dqn", "-e", TRAINER_TASK,
+                "--batch", str(CLI_LANES), "--seed", "1",
+                "--benchmark-episodes", str(CLI_EPISODES), *extra]
+
+    what = "CLI --algo dqn at %d lanes" % CLI_LANES
+    out, calls, launches, wall = cli_run(
+        dev, argv("--steps", str(CLI_STEPS), "-x", cuts), what, card)
+    ds = out.state
+    if ds.num_steps < CLI_STEPS or not isinstance(out.model, SafeLifeQNetwork):
+        raise AssertionError("trained %d steps" % ds.num_steps)
+    if not all(bool(torch.isfinite(p).all()) for p in out.model.parameters()):
+        raise AssertionError("non-finite parameters")
+    ckpt = CheckpointManager(data_dir)
+    saved, _, step = ckpt.restore(device=dev)
+    if step != ds.num_steps or "target_params" not in saved:
+        raise AssertionError("checkpoints %s" % ckpt.steps())
+    if not len(calls.get("report", [])):
+        raise AssertionError("no report")
+    check_run_dir(data_dir, out, CLI_EPISODES)
+    t_train = part_seconds(calls, "train_dqn")
+    t_chunks = part_seconds(calls, "dqn_training")
+    log("%s, %d steps (%d chunks of %d units), replay_initial cut to 4096: "
+        "the whole command %.3f s = set-up %.3f s + train_dqn %.3f s + final "
+        "benchmark (%d episodes) %.3f s; chunks %.3f s, %d refreshes %.4f s, "
+        "%d reports %.4f s; %.0f training env-steps/s over train_dqn, %.0f "
+        "over the chunks alone; replay %d entries; summary %s  [%s]"
+        % (what, ds.num_steps, len(calls["dqn_training"]), DQN_UNITS, wall,
+           wall - t_train - part_seconds(calls, "benchmark"), t_train,
+           CLI_EPISODES, part_seconds(calls, "benchmark"), t_chunks,
+           len(calls.get("refresh", [])), part_seconds(calls, "refresh"),
+           len(calls["report"]), part_seconds(calls, "report"),
+           ds.num_steps / t_train, ds.num_steps / t_chunks,
+           ds.replay.size(), json.dumps(out.summary), card))
+    first = dict(launches=launches, wall=wall, train=t_train,
+                 chunks=t_chunks, steps=ds.num_steps)
+
+    with restored_learners() as snaps:
+        out, calls, _, _ = cli_run(
+            dev, argv("--steps", str(RESUME_STEPS), "-x", cuts),
+            "CLI --algo dqn resume to %d steps" % RESUME_STEPS, card)
+    (ws, obs, _, rstep), = [c[3] for c in calls["restore"]]
+    snap, = snaps
+    if rstep != step or obs is None or len(calls["restore_pool"]) != 1 \
+            or out.state.num_steps < RESUME_STEPS:
+        raise AssertionError("the resume restored step %s, env state %s, "
+                             "trained to %d" % (rstep, obs is not None,
+                                                out.state.num_steps))
+    if not torch.equal(ws.env.board, saved["env_state"].env.board):
+        raise AssertionError("restored env state differs")
+    for k, v in saved["params"].items():
+        if not (torch.equal(snap["params"][k], v)
+                and torch.equal(snap["target"][k], saved["target_params"][k])):
+            raise AssertionError("restored parameters or target %s differ" % k)
+    adam = saved["opt_state"]["state"].values()
+    if not adam or len(adam) != len(snap["adam"]):
+        raise AssertionError("no Adam state restored (a cold run)")
+    for (n, avg), st in zip(snap["adam"], adam):
+        if n != float(st["step"]) or not torch.equal(avg, st["exp_avg"]):
+            raise AssertionError("restored Adam state differs")
+    log("CLI --algo dqn resume: restored step %d with the learner, target "
+        "network, Adam (step %d), env state and pool; trained to %d, the "
+        "replay re-warmed from empty (%d entries)"
+        % (rstep, snap["adam"][0][0], out.state.num_steps,
+           out.state.replay.idx))
+
+    out, calls, _, _ = cli_run(
+        dev, argv("--run-type", "benchmark", "-x",
+                  json.dumps({"env.pool_size": BENCH_POOL})),
+        "CLI --run-type benchmark --algo dqn", card)
+    latest, _, _ = ckpt.restore(device=dev)
+    if out.state is not None or calls.get("dqn_training") \
+            or not isinstance(out.model, SafeLifeQNetwork):
+        raise AssertionError("the benchmark run trained")
+    for k, v in out.model.state_dict().items():
+        if not torch.equal(v, latest["params"][k]):
+            raise AssertionError("benchmarked parameters %s differ from the "
+                                 "checkpoint's" % k)
+    check_run_dir(data_dir, out, CLI_EPISODES)
+    log("CLI --run-type benchmark --algo dqn: the checkpoint at step %d read "
+        "back, %d episodes, summary %s" % (ckpt.latest_step(), CLI_EPISODES,
+                                           json.dumps(out.summary)))
+    return first
+
+
+def run_dqn_phase(dev, spawn, prune, card):
+    """Phase 8: the DQN path at DQN_LANES, the card against the CPU, and
+    the CLI with ``--algo dqn``."""
+    fresh_cli_state()
+    chunks = [run_dqn_path(dev, spawn, lanes, card) for lanes in DQN_LANES]
+    check_dqn_against_cpu(dev, prune[0], card)
+    return chunks, run_dqn_cli(dev, card)
+
+
+# ---------------------------------------------------------------------------
 
 
 #: Kernel form -> (source, the TPU kernel it replaces, its kernel's name in
@@ -2173,6 +2625,9 @@ def main():
     # holds a CUDA context.
     trainer, startup = run_trainer_phase(dev, card)
 
+    # Phase 8
+    dqn_chunks, dqn_cli = run_dqn_phase(dev, spawn, prune, card)
+
     # Timings at the main path's shapes (B = 512 and 4096) and at the
     # large-board path's.
     from safelife_tpu_torch.env.state import pack_levels
@@ -2205,6 +2660,19 @@ def main():
            trainer["wall"], trainer["train_ppo"],
            trainer["steps"] / trainer["train_ppo"],
            json.dumps(trainer["launches"]), card))
+    for c in dqn_chunks:
+        log("DQN (phase 8) at %d lanes: %.0f training env-steps/s, a unit "
+            "(%d env steps) %.3f ms: collect %.3f ms, optimize %.3f ms; "
+            "device busy %.1f%% of a profiled unit  [%s]"
+            % (c["lanes"], c["steps"] / c["wall_ms"] * 1e3, c["steps"]
+               // DQN_UNITS, c["wall_ms"] / DQN_UNITS,
+               c["collect"] / DQN_UNITS, c["optimize"] / DQN_UNITS,
+               100 * c["busy"], card))
+    log("DQN CLI (phase 8) at %d lanes: %.3f s, train_dqn %.3f s, %.0f "
+        "training env-steps/s; launches %s  [%s]"
+        % (CLI_LANES, dqn_cli["wall"], dqn_cli["train"],
+           dqn_cli["steps"] / dqn_cli["train"],
+           json.dumps(dqn_cli["launches"]), card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []

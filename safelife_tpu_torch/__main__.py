@@ -3,9 +3,9 @@
 Port of ``safelife_tpu/__main__.py``: ``main`` with the ``train`` verb
 (``:43-66``) and a ``--device`` flag (``cuda`` unless ``cpu`` is asked
 for), ``_confirm_data_dir`` (``:124-159``) and ``cmd_train``
-(``:162-265``) for one process. ``--algo dqn`` raises until the Q network
-is ported (ROADMAP.md queue 1 item 4); the verbs ``print``, ``play``,
-``new``, ``render`` and ``bench`` and ``--wandb`` are not ported (item 9).
+(``:162-265``) for one process, ``--algo ppo`` or ``dqn``; the verbs
+``print``, ``play``, ``new``, ``render`` and ``bench`` and ``--wandb`` are
+not ported (ROADMAP.md queue 1 item 9).
 """
 
 import argparse
@@ -92,9 +92,9 @@ def _confirm_data_dir(data_dir):
 
 def cmd_train(args):
     """Train (or benchmark, or inspect) on ``args.device``. Returns a
-    namespace of the run's ``bundle``, the ``model``, the PPO ``state``
-    (None unless trained) and the final benchmark's ``summary`` (None when
-    skipped)."""
+    namespace of the run's ``bundle``, the ``model``, the learner's
+    ``state`` (PPO's or DQN's; None unless trained) and the final
+    benchmark's ``summary`` (None when skipped)."""
     import torch
 
     from .training import train as T
@@ -104,10 +104,6 @@ def cmd_train(args):
     from .utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    if args.algo == "dqn":
-        raise NotImplementedError(
-            "--algo dqn: the Q network and DQN are not ported yet "
-            "(ROADMAP.md queue 1 item 4)")
     if args.data_dir and args.run_type == "train":
         _confirm_data_dir(args.data_dir)
 
@@ -157,7 +153,8 @@ def cmd_train(args):
             out.model = T.load_for_eval(args.algo, bundle, args.data_dir,
                                         device=dev)
         else:
-            out.model, out.state = T.train_ppo(
+            train = T.train_ppo if args.algo == "ppo" else T.train_dqn
+            out.model, out.state = train(
                 bundle, total_steps=args.steps, batch_size=args.batch,
                 seed=args.seed or 0, data_dir=args.data_dir, device=dev)
         if not args.skip_benchmark and (bundle.benchmark_levels

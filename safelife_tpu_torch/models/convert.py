@@ -1,10 +1,16 @@
-"""Load the JAX package's policy parameters into the torch network.
+"""Load the JAX package's network parameters into the torch networks.
 
 Takes the flax parameter tree of ``SafeLifePolicyNetwork`` as
 ``safelife_tpu/models/nets.py:174`` (``init_policy_params``) builds it,
 with numpy arrays as leaves — ``SafeLifeCNN_0/Conv_{0,1,2}`` and
 ``Dense_{0,1,2}`` (hidden, value, logits) — and maps it onto
-:class:`~safelife_tpu_torch.models.nets.SafeLifePolicyNetwork`:
+:class:`~safelife_tpu_torch.models.nets.SafeLifePolicyNetwork`; likewise
+the tree of ``SafeLifeQNetwork`` (``nets.py:149-171``) onto
+:class:`~safelife_tpu_torch.models.nets.SafeLifeQNetwork`. Flax numbers
+dense layers in the order they are constructed, and in
+``Dense(9)(relu(Dense(256)(x)))`` the outer layer is constructed first:
+``Dense_0`` is the advantage output, ``Dense_1`` its hidden layer,
+``Dense_2`` the value output and ``Dense_3`` its hidden layer. Both:
 
 * conv kernels HWIO → OIHW;
 * dense kernels [in, out] → [out, in].
@@ -17,7 +23,9 @@ dense layer needs no row permutation.
 optax ``adam``'s ``ScaleByAdamState`` and ``num_steps``) becomes a
 :class:`~safelife_tpu_torch.training.ppo.PPOState` whose
 ``torch.optim.Adam`` holds the same step count and moments, transposed as
-the parameters are.
+the parameters are. :func:`dqn_state_from_jax` does the same for a JAX
+``DQNState`` (``safelife_tpu/training/dqn.py:242-261``), its target
+parameters, replay buffer and n-step rings included.
 """
 
 import numpy as np
@@ -33,21 +41,40 @@ def _dense(p):
     return {"weight": np.asarray(p["kernel"]).T, "bias": np.asarray(p["bias"])}
 
 
+def _state_dict(parts):
+    return {"%s.%s" % (name, k): torch.tensor(v, dtype=torch.float32)
+            for name, p in parts.items() for k, v in p.items()}
+
+
+def _cnn_parts(params):
+    cnn = params["SafeLifeCNN_0"]
+    return {"cnn.conv%d" % i: _conv(cnn["Conv_%d" % i]) for i in range(3)}
+
+
 def policy_params_from_flax(tree):
     """State dict for ``SafeLifePolicyNetwork`` from a flax parameter tree
     (with or without the top ``"params"``)."""
     params = tree.get("params", tree)
-    cnn = params["SafeLifeCNN_0"]
-    parts = {
-        "cnn.conv0": _conv(cnn["Conv_0"]),
-        "cnn.conv1": _conv(cnn["Conv_1"]),
-        "cnn.conv2": _conv(cnn["Conv_2"]),
+    return _state_dict({
+        **_cnn_parts(params),
         "dense": _dense(params["Dense_0"]),
         "value": _dense(params["Dense_1"]),
         "logits": _dense(params["Dense_2"]),
-    }
-    return {"%s.%s" % (name, k): torch.tensor(v, dtype=torch.float32)
-            for name, p in parts.items() for k, v in p.items()}
+    })
+
+
+def q_params_from_flax(tree):
+    """State dict for ``SafeLifeQNetwork`` from a flax parameter tree (with
+    or without the top ``"params"``), dense layers by flax's construction
+    order."""
+    params = tree.get("params", tree)
+    return _state_dict({
+        **_cnn_parts(params),
+        "adv": _dense(params["Dense_0"]),
+        "adv_hidden": _dense(params["Dense_1"]),
+        "value": _dense(params["Dense_2"]),
+        "value_hidden": _dense(params["Dense_3"]),
+    })
 
 
 def _adam_state(opt_state):
@@ -59,6 +86,22 @@ def _adam_state(opt_state):
     raise ValueError("no ScaleByAdamState in the optimizer state")
 
 
+def _load_adam(optimizer, model, opt_state, params_from_flax):
+    """Adam's step count and moments from optax's state into
+    ``optimizer``, whose parameters are ``model``'s."""
+    dev = next(model.parameters()).device
+    adam = _adam_state(opt_state)
+    mu = params_from_flax(adam.mu)
+    nu = params_from_flax(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mu[name].to(dev),
+            "exp_avg_sq": nu[name].to(dev),
+        }
+
+
 def ppo_state_from_jax(pstate_tree, model):
     """A :class:`~safelife_tpu_torch.training.ppo.PPOState` around
     ``model`` (a ``SafeLifePolicyNetwork`` of the same shapes, on its
@@ -66,19 +109,40 @@ def ppo_state_from_jax(pstate_tree, model):
     optimizer built from ``PPOConfig()``'s learning rate."""
     from ..training import ppo
 
-    dev = next(model.parameters()).device
     model.load_state_dict(policy_params_from_flax(pstate_tree.params))
     state = ppo.PPOState(model=model,
                          optimizer=ppo.make_optimizer(ppo.PPOConfig(), model),
                          num_steps=int(np.asarray(pstate_tree.num_steps)))
-    adam = _adam_state(pstate_tree.opt_state)
-    mu = policy_params_from_flax(adam.mu)
-    nu = policy_params_from_flax(adam.nu)
-    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    for name, p in model.named_parameters():
-        state.optimizer.state[p] = {
-            "step": step.clone(),
-            "exp_avg": mu[name].to(dev),
-            "exp_avg_sq": nu[name].to(dev),
-        }
+    _load_adam(state.optimizer, model, pstate_tree.opt_state,
+               policy_params_from_flax)
+    return state
+
+
+def dqn_state_from_jax(dstate_tree, model):
+    """A :class:`~safelife_tpu_torch.training.dqn.DQNState` around
+    ``model`` (a ``SafeLifeQNetwork`` of the same shapes, on its device)
+    from a JAX ``DQNState`` with numpy (or JAX) leaves: parameters, target
+    parameters, Adam, ``num_steps``, the replay buffer and the n-step
+    rings, its optimizer built from ``DQNConfig()``'s learning rate."""
+    from ..training import dqn
+
+    dev = next(model.parameters()).device
+
+    def t(x):
+        return torch.tensor(np.asarray(x), device=dev)
+
+    model.load_state_dict(q_params_from_flax(dstate_tree.params))
+    r, tr = dstate_tree.replay, dstate_tree.traj
+    state = dqn.DQNState.around(
+        dqn.DQNConfig(), model,
+        replay=dqn.ReplayBuffer(obs=t(r.obs), action=t(r.action),
+                                reward=t(r.reward), next_obs=t(r.next_obs),
+                                done=t(r.done), idx=int(np.asarray(r.idx))),
+        traj=dqn.TrajectoryState(obs=t(tr.obs), action=t(tr.action),
+                                 reward=t(tr.reward), filled=t(tr.filled)),
+        num_steps=int(np.asarray(dstate_tree.num_steps)))
+    state.target_model.load_state_dict(
+        q_params_from_flax(dstate_tree.target_params))
+    _load_adam(state.optimizer, model, dstate_tree.opt_state,
+               q_params_from_flax)
     return state

@@ -1,11 +1,12 @@
-"""The policy network, architecture parity with the reference
+"""The policy and Q networks, architecture parity with the reference
 (``training/models.py:9-108``): a 3-conv VALID-padded CNN trunk
 (5x5/s2 -> 32, 3x3/s2 -> 64, 3x3/s1 -> 64, ReLU) feeding a policy+value
-head (dense 512).
+head (dense 512) or dueling Q heads (dense 256 each).
 
 Port of ``safelife_tpu/models/nets.py``: ``unpack_obs`` (``:74-81``),
-``SafeLifeCNN`` (``:84-101``), ``cnn_output_features`` (``:104-113``) and
-``SafeLifePolicyNetwork`` (``:116-146``). The Q network is not ported yet.
+``SafeLifeCNN`` (``:84-101``), ``cnn_output_features`` (``:104-113``),
+``SafeLifePolicyNetwork`` (``:116-146``) and ``SafeLifeQNetwork``
+(``:149-171``, two dense-256 dueling heads).
 
 Inputs keep the JAX package's layout: NHWC float observations
 [N, vh, vw, C], or packed int32 views [N, vh, vw] when ``unpack_channels``
@@ -35,6 +36,7 @@ TRAINING_CHANNELS = (
 )
 
 HIDDEN_WIDTH = 512
+Q_HIDDEN_WIDTH = 256
 NUM_ACTIONS = 9
 
 
@@ -89,7 +91,33 @@ class SafeLifeCNN(nn.Module):
         return x.permute(0, 2, 3, 1).flatten(1)  # flax's NHWC flatten
 
 
-class SafeLifePolicyNetwork(nn.Module):
+class _PackedViewNetwork(nn.Module):
+    """The CNN trunk on observations that are NHWC floats or, with
+    ``unpack_channels``, packed int32 views unpacked at the input."""
+
+    def __init__(self, view_shape, num_channels, unpack_channels, device):
+        super().__init__()
+        if unpack_channels is not None:
+            unpack_channels = tuple(unpack_channels)
+            num_channels = len(unpack_channels)
+        if num_channels is None:
+            raise ValueError("give num_channels or unpack_channels")
+        self.unpack_channels = unpack_channels
+        self.cnn = SafeLifeCNN(num_channels, device=device)
+        self.features = cnn_output_features(
+            tuple(view_shape) + (num_channels,))
+
+    def trunk(self, obs):
+        """Trunk features [N, features]; call inside strict_float32()."""
+        return self.cnn(obs.to(torch.float32))
+
+    def unpack(self, obs):
+        if self.unpack_channels is not None:
+            obs = unpack_obs(obs, self.unpack_channels)
+        return obs
+
+
+class SafeLifePolicyNetwork(_PackedViewNetwork):
     """Actor-critic network: obs -> (value [N], policy probabilities [N, 9]),
     one hidden dense layer of 512 as the JAX package's defaults.
 
@@ -100,25 +128,40 @@ class SafeLifePolicyNetwork(nn.Module):
 
     def __init__(self, view_shape=(25, 25), num_channels=None,
                  unpack_channels=None, device="cuda"):
-        super().__init__()
         dev = resolve_device(device)
-        if unpack_channels is not None:
-            unpack_channels = tuple(unpack_channels)
-            num_channels = len(unpack_channels)
-        if num_channels is None:
-            raise ValueError("give num_channels or unpack_channels")
-        self.unpack_channels = unpack_channels
-        self.cnn = SafeLifeCNN(num_channels, device=dev)
-        features = cnn_output_features(tuple(view_shape) + (num_channels,))
-        self.dense = nn.Linear(features, HIDDEN_WIDTH, device=dev)
+        super().__init__(view_shape, num_channels, unpack_channels, dev)
+        self.dense = nn.Linear(self.features, HIDDEN_WIDTH, device=dev)
         self.value = nn.Linear(HIDDEN_WIDTH, 1, device=dev)
         self.logits = nn.Linear(HIDDEN_WIDTH, NUM_ACTIONS, device=dev)
 
     def forward(self, obs):
-        if self.unpack_channels is not None:
-            obs = unpack_obs(obs, self.unpack_channels)
+        obs = self.unpack(obs)
         with strict_float32():
-            x = torch.relu(self.dense(self.cnn(obs.to(torch.float32))))
+            x = torch.relu(self.dense(self.trunk(obs)))
             value = self.value(x)[..., 0]
             policy = torch.softmax(self.logits(x), dim=-1)
         return value, policy
+
+
+class SafeLifeQNetwork(_PackedViewNetwork):
+    """Dueling Q network: obs -> Q-values [N, 9], each head one hidden
+    dense layer of 256. Parity: reference ``SafeLifeQNetwork``
+    (models.py:46-76), the mean advantage subtracted."""
+
+    def __init__(self, view_shape=(25, 25), num_channels=None,
+                 unpack_channels=None, device="cuda"):
+        dev = resolve_device(device)
+        super().__init__(view_shape, num_channels, unpack_channels, dev)
+        self.adv_hidden = nn.Linear(self.features, Q_HIDDEN_WIDTH, device=dev)
+        self.adv = nn.Linear(Q_HIDDEN_WIDTH, NUM_ACTIONS, device=dev)
+        self.value_hidden = nn.Linear(self.features, Q_HIDDEN_WIDTH,
+                                      device=dev)
+        self.value = nn.Linear(Q_HIDDEN_WIDTH, 1, device=dev)
+
+    def forward(self, obs):
+        obs = self.unpack(obs)
+        with strict_float32():
+            x = self.trunk(obs)
+            adv = self.adv(torch.relu(self.adv_hidden(x)))
+            val = self.value(torch.relu(self.value_hidden(x)))
+            return val + adv - adv.mean(-1, keepdim=True)

@@ -85,6 +85,12 @@ def _flatten_agents(x):
     return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
 
+#: The per-step episode records a training step keeps for the episode
+#: logger (``EpisodeCollector.observe``).
+EPISODE_KEYS = ("lane_done", "episode_reward", "episode_length", "success",
+                "level_idx", "agent_mask", "reward_possible", "reward_needed")
+
+
 def _stack(steps):
     """A list of (nested dicts of) tensors -> the same with [T, ...]."""
     if isinstance(steps[0], dict):
@@ -131,10 +137,8 @@ def rollout(env_cfg, wcfg, pool, model, ws, obs, generator, n_steps,
             "values": values,
             "done": _flatten_agents(done),
             "weight": weight,
-            "ep": {k: info[k] for k in (
-                "lane_done", "episode_reward", "episode_length", "success",
-                "level_idx", "agent_mask", "reward_possible",
-                "reward_needed")} | {"sample": info["ep_sample"]},
+            "ep": {k: info[k] for k in EPISODE_KEYS}
+            | {"sample": info["ep_sample"]},
         })
     final_values, _ = model(_flatten_agents(obs))
     return _stack(out), (ws, obs), final_values

@@ -1,7 +1,7 @@
 """Batched episode evaluation and benchmarking.
 
-Port of ``safelife_tpu/training/runner.py``: ``_policy_sample`` (``:30-51``,
-actor-critic branch), ``run_episodes_impl`` (``:54-97``),
+Port of ``safelife_tpu/training/runner.py``: ``EPSILON_TESTING`` (``:27``),
+``_policy_sample`` (``:30-51``), ``run_episodes_impl`` (``:54-97``),
 ``record_episode_history`` (``:211-275``), ``benchmark`` (``:278-364``),
 ``summarize_records`` and ``_stack_se`` (``:367-396``). Its
 ``batched_occupancy`` and ``episode_side_effects`` live in
@@ -39,12 +39,35 @@ def sample_actions(policy, generator):
     return torch.argmax(logits + gumbel, dim=-1)
 
 
+#: ε of a Q network's near-greedy evaluation (parity: the reference's
+#: testing epsilon, dqn.py ``epsilon_testing = 0.01``).
+EPSILON_TESTING = 0.01
+
+
+def epsilon_greedy(qvals, epsilon, generator):
+    """int64 [N] actions from Q-values [N, n]: the argmax, or with
+    probability ``epsilon`` a uniform action, with draws from
+    ``generator``."""
+    greedy = torch.argmax(qvals, dim=-1)
+    rand = torch.randint(0, qvals.shape[-1], greedy.shape,
+                         generator=generator, device=qvals.device)
+    explore = torch.rand(greedy.shape, generator=generator,
+                         device=qvals.device) < epsilon
+    return torch.where(explore, rand, greedy)
+
+
 def _policy_sample(model, obs, generator):
-    """Sample actions int32 [B, A] from an actor-critic model's
-    probabilities. Agents flatten into the network batch."""
+    """Sample actions int32 [B, A] from either network family: an
+    actor-critic model's (values, probabilities), or a Q network's
+    Q-values, played ε-greedily with ``EPSILON_TESTING``. Agents flatten
+    into the network batch."""
     b, a = obs.shape[:2]
-    _, policy = model(obs.reshape((b * a,) + obs.shape[2:]))
-    return sample_actions(policy, generator).to(torch.int32).reshape(b, a)
+    out = model(obs.reshape((b * a,) + obs.shape[2:]))
+    if isinstance(out, tuple):
+        acts = sample_actions(out[1], generator)
+    else:
+        acts = epsilon_greedy(out, EPSILON_TESTING, generator)
+    return acts.to(torch.int32).reshape(b, a)
 
 
 @torch.no_grad()

@@ -1,21 +1,23 @@
 """Training-loop orchestration (the reference's ``start-training.py``).
 
-Port of ``safelife_tpu/training/train.py`` for PPO in one process:
+Port of ``safelife_tpu/training/train.py`` in one process:
 ``build_model`` (``:28-56``), ``load_for_eval`` (``:59-73``),
 ``_sampled_side_effects`` (``:76-103``), ``_exhaustive_side_effects``
 (``:106-139``), ``_summarize_se_map`` (``:142-151``),
 ``_maybe_record_best_episode`` (``:161-181``), ``_restore_latest``
 (``:184-262``), ``train_ppo`` (``:265-446``, without the mesh; its report
-is :func:`_report` here), ``run_validation`` (``:576-585``) and
-``run_benchmark`` (``:588-604``). ``train_dqn`` waits for the Q network
-(ROADMAP.md queue 1 item 4).
+is :func:`_report` here), ``train_dqn`` (``:449-573``, without the mesh;
+its report is :func:`_report_dqn`), ``run_validation`` (``:576-585``) and
+``run_benchmark`` (``:588-604``).
 
-Around the PPO iteration (:mod:`.ppo`, kernels K1-K3 on CUDA) the loop
-runs host-side control: schedules, reports with side-effect telemetry,
-validation, checkpoints (every 100k steps, the last 3 kept), level-pool
-refreshes that never touch a slot a live lane is on. Where the JAX package
-takes (``model``, ``params``, ``key``), these take the network, which
-holds its parameters, and a ``torch.Generator`` on the run's device.
+Around the PPO iteration (:mod:`.ppo`) or the DQN collect-and-optimize
+unit (:mod:`.dqn`), both with kernels K1-K3 on CUDA, the loop runs
+host-side control: schedules, reports (PPO's with side-effect telemetry),
+PPO's validation, checkpoints (every 100k steps, the last 3 kept),
+level-pool refreshes that never touch a slot a live lane is on. Where the
+JAX package takes (``model``, ``params``, ``key``), these take the
+network, which holds its parameters, and a ``torch.Generator`` on the
+run's device.
 """
 
 import dataclasses
@@ -27,10 +29,10 @@ import torch
 
 from ..env import env as E, wrappers as W
 from ..loggers import EpisodeCollector, SafeLifeLogger, summarize_run
-from ..models.nets import SafeLifePolicyNetwork
+from ..models.nets import SafeLifePolicyNetwork, SafeLifeQNetwork
 from ..side_effects import side_effect_score, weighted_side_effect_total
 from ..utils.device import resolve_device
-from . import ppo, runner
+from . import dqn, ppo, runner
 from .checkpoints import CheckpointManager
 from .global_config import build_config, config
 
@@ -41,17 +43,16 @@ TELEMETRY_SAMPLES = 1000
 
 
 def build_model(bundle, algo="ppo", device="cuda"):
-    """The policy network for the bundle's packed views, on ``device``.
+    """The network of ``algo`` for the bundle's packed views, on
+    ``device``: PPO's policy network or DQN's Q network.
 
-    Only PPO's network in strict float32 with torch's own layer init is
-    ported: ``algo="dqn"``, a ``train.precision`` other than float32
-    (ROADMAP.md queue 1 items 4, 5) and ``train.torch_init: false`` (the
-    JAX package's flax init) raise.
+    Both run in strict float32 with torch's own layer init: a
+    ``train.precision`` other than float32 (ROADMAP.md queue 1 item 5) and
+    ``train.torch_init: false`` (the JAX package's flax init) raise.
     """
-    if algo != "ppo":
-        raise NotImplementedError(
-            "algo %r: the Q network and DQN are not ported yet (ROADMAP.md "
-            "queue 1 item 4)" % algo)
+    nets = {"ppo": SafeLifePolicyNetwork, "dqn": SafeLifeQNetwork}
+    if algo not in nets:
+        raise ValueError("unknown algo %r" % algo)
     precision = config.setdefault("train.precision", "float32")
     if precision != "float32":
         raise NotImplementedError(
@@ -60,9 +61,8 @@ def build_model(bundle, algo="ppo", device="cuda"):
     if not config.setdefault("train.torch_init", True):
         raise ValueError("train.torch_init: false asks for flax's init; the "
                          "port has torch's own layer init only")
-    return SafeLifePolicyNetwork(
-        view_shape=bundle.env_cfg.view_shape,
-        unpack_channels=bundle.obs_channels, device=device)
+    return nets[algo](view_shape=bundle.env_cfg.view_shape,
+                      unpack_channels=bundle.obs_channels, device=device)
 
 
 def load_for_eval(algo, bundle, data_dir, device="cuda"):
@@ -179,14 +179,28 @@ def _leaf_shapes(obj):
     return []
 
 
-def _restore_latest(ckpt, pstate, ws, bundle, device):
-    """Restore the latest checkpoint into a training loop.
+def _checkpoint_state(learner, ws, pool):
+    """What a training checkpoint holds: the learner (parameters, DQN's
+    target parameters, Adam state, ``num_steps``), the env state and the
+    level pool its lanes index into. DQN's replay and n-step rings are
+    left out: they refill within one optimize interval, and a resumed run
+    re-warms the buffer before it optimizes again."""
+    state = {"params": learner.model.state_dict(),
+             "opt_state": learner.optimizer.state_dict(),
+             "num_steps": learner.num_steps, "env_state": ws, "pool": pool}
+    if hasattr(learner, "target_model"):
+        state["target_params"] = learner.target_model.state_dict()
+    return state
 
-    The learner (parameters, Adam state, ``num_steps``) is restored in
-    place. The env state and the level pool its lanes index into are
-    restored together when the saved env state has this run's shapes;
-    otherwise (batch size or wrapper changed) the run resumes the learner
-    only, with fresh episodes and levels.
+
+def _restore_latest(ckpt, pstate, ws, bundle, device):
+    """Restore the latest checkpoint into a training loop (PPO or DQN).
+
+    The learner (parameters, DQN's target parameters, Adam state,
+    ``num_steps``) is restored in place. The env state and the level pool
+    its lanes index into are restored together when the saved env state
+    has this run's shapes; otherwise (batch size or wrapper changed) the
+    run resumes the learner only, with fresh episodes and levels.
 
     Returns ``(ws, obs, extra, step)``: ``obs`` is None unless the env
     state was restored, ``step`` None when there is no checkpoint.
@@ -195,6 +209,8 @@ def _restore_latest(ckpt, pstate, ws, bundle, device):
     if state is None:
         return ws, None, None, None
     pstate.model.load_state_dict(state["params"])
+    if hasattr(pstate, "target_model"):
+        pstate.target_model.load_state_dict(state["target_params"])
     if "opt_state" in state:
         opt = state["opt_state"]
         # Adam keeps its step counts on the host (not capturable).
@@ -223,20 +239,23 @@ def _restore_latest(ckpt, pstate, ws, bundle, device):
     return ws, obs, extra, step
 
 
+def _pcheck(model):
+    """The float64 L1 norm of the parameters: one host copy of every
+    parameter, the float64 sum on the host."""
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return float(np.abs(flat.cpu().numpy().astype(np.float64)).sum())
+
+
 def _report(bundle, pstate, metrics, ep_samples, se_map, generator, rate):
-    """One report: the log line with the float64 L1 norm of the parameters
-    (``pcheck``), and the scalars with side-effect telemetry to the
-    training logger."""
+    """One report: the log line with the parameters' ``pcheck``, and the
+    scalars with side-effect telemetry to the training logger."""
     n = pstate.num_steps
     m = {k: float(v) for k, v in metrics.items()}
-    # One host copy of every parameter; the float64 sum on the host.
-    flat = torch.cat([p.detach().reshape(-1)
-                      for p in pstate.model.parameters()])
-    pcheck = float(np.abs(flat.cpu().numpy().astype(np.float64)).sum())
     logger.info(
         "n=%d: loss=%.3g entropy=%.3f reward=%.4f (%.0f steps/s) "
         "pcheck=%.17g",
-        n, m["loss"], m["entropy"], m["reward_mean"], rate, pcheck)
+        n, m["loss"], m["entropy"], m["reward_mean"], rate,
+        _pcheck(pstate.model))
     if bundle.wrapper_cfg.exhaustive_se:
         se = _summarize_se_map(se_map)
     else:
@@ -335,9 +354,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
             # ``pool`` is the pool this chunk's lanes stepped on (before
             # the refresh): a resume pairs them again.
             ckpt.save_if_needed(
-                n, {"params": model.state_dict(),
-                    "opt_state": pstate.optimizer.state_dict(),
-                    "num_steps": n, "env_state": ws, "pool": pool},
+                n, _checkpoint_state(pstate, ws, pool),
                 dict(bundle.training_logger.cumulative_stats))
 
         if n >= next_report:
@@ -350,13 +367,96 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
             run_validation(model, bundle, data_dir, generator, device=dev)
 
     if ckpt:
-        ckpt.save(pstate.num_steps,
-                  {"params": model.state_dict(),
-                   "opt_state": pstate.optimizer.state_dict(),
-                   "num_steps": pstate.num_steps, "env_state": ws,
-                   "pool": pool},
+        ckpt.save(pstate.num_steps, _checkpoint_state(pstate, ws, pool),
                   dict(bundle.training_logger.cumulative_stats))
     return model, pstate
+
+
+def _report_dqn(bundle, dstate, metrics):
+    """One DQN report: the log line with the parameters' ``pcheck``, and
+    the scalars to the training logger."""
+    n = dstate.num_steps
+    m = {k: float(v) for k, v in metrics.items()}
+    logger.info("n=%d: loss=%.3g eps=%.3f q=%.3g pcheck=%.17g", n,
+                m["loss"], m["epsilon"], m["q_model_mean"],
+                _pcheck(dstate.model))
+    bundle.training_logger.log_scalars(m, n, "dqn")
+
+
+def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
+              data_dir=None, report_interval=None,
+              checkpoint_interval=100_000, device="cuda"):
+    """Train DQN to ``total_steps`` env steps on ``device``, where the
+    bundle's pool lives. Returns (model, dqn_state).
+
+    A unit is ``optimize_interval // batch_size`` (at least 1) steps of
+    ``batch_size`` lanes, then one optimizer step once the replay is
+    warm; a chunk is 32 units. After each chunk the finished episodes are
+    logged, the pool refreshed (2 levels at most, never a slot a live lane
+    is on), a checkpoint saved when due (no replay: a resume re-warms it)
+    and at the report interval a report made. The env step applies no
+    side-effect penalty or exit-difficulty schedule, as in the JAX
+    package. With ``data_dir`` the run resumes from its latest checkpoint
+    and saves at the end.
+    """
+    dev = resolve_device(device)
+    cfg = build_config(dqn.DQNConfig, "dqn")
+    if report_interval is None:
+        report_interval = cfg.report_interval
+    env_cfg, wcfg = bundle.env_cfg, bundle.wrapper_cfg
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    with torch.random.fork_rng(
+            devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        model = build_model(bundle, "dqn", device=dev)
+    pool = bundle.pool_manager.pool
+    # One n-step ring per flattened lane x agent slot; packed int32 views.
+    dstate = dqn.init_dqn_state(
+        cfg, model, batch_size * pool.num_agents, env_cfg.view_shape,
+        torch.int32, device=dev)
+    ws, obs = W.reset(env_cfg, wcfg, pool, batch_size, device=dev)
+    ckpt = data_dir and CheckpointManager(
+        data_dir, interval=checkpoint_interval)
+    if ckpt:
+        ws, robs, extra, _ = _restore_latest(ckpt, dstate, ws, bundle, dev)
+        if robs is not None:
+            obs = robs
+            pool = bundle.pool_manager.pool
+        if extra:
+            bundle.training_logger.cumulative_stats.update(extra)
+
+    collector = EpisodeCollector(
+        bundle.training_logger,
+        level_meta=bundle.pool_manager.level_meta())
+    chunk = max(cfg.optimize_interval // batch_size, 1)
+    iters_per_chunk = 32
+    next_report = report_interval
+    while dstate.num_steps < total_steps:
+        pool = bundle.pool_manager.pool
+        dstate, ws, obs, metrics = dqn.train_chunk(
+            env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, chunk,
+            iters_per_chunk, device=dev)
+        episodes = {k: v.cpu().numpy()
+                    for k, v in metrics.pop("episodes").items()}
+        collector.observe(episodes,
+                          batch_steps=chunk * batch_size * iters_per_chunk)
+        n = dstate.num_steps
+        bundle.training_logger.cumulative_stats["training_steps"] = n
+        bundle.pool_manager.refresh(
+            2, in_use=np.unique(ws.env.level_idx.cpu().numpy()))
+        if ckpt:
+            # The chunk's own (pre-refresh) pool: the saved env state's
+            # lanes resume against the levels they are mid-episode on.
+            ckpt.save_if_needed(
+                n, _checkpoint_state(dstate, ws, pool),
+                dict(bundle.training_logger.cumulative_stats))
+        if n >= next_report:
+            next_report = (n // report_interval + 1) * report_interval
+            _report_dqn(bundle, dstate, metrics)
+    if ckpt:
+        ckpt.save(dstate.num_steps, _checkpoint_state(dstate, ws, pool),
+                  dict(bundle.training_logger.cumulative_stats))
+    return model, dstate
 
 
 def run_validation(model, bundle, data_dir, generator, device="cuda"):

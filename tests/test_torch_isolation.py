@@ -42,13 +42,20 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, started, lib, bad = out.stdout.strip().split(" ", 3)
-    # 41 modules: the 32 of PR 5, then utils.rng, native, procgen (and its
-    # regions, pattern, generate), training.global_config,
-    # training.logging_setup and __main__.
-    assert int(n) >= 41
+    # 42 modules, training.dqn among them.
+    assert int(n) >= 42
+    assert "safelife_tpu_torch.training.dqn" in _modules()
     assert bad == "[]"
     # Importing builds nothing: no compiler started, no library loaded.
     assert started == "0" and lib == "None"
+
+
+def _modules():
+    import pkgutil
+
+    import safelife_tpu_torch
+    return {m.name for m in pkgutil.walk_packages(
+        safelife_tpu_torch.__path__, "safelife_tpu_torch.")}
 
 
 def test_cuda_is_the_default_device(tmp_path):
@@ -87,6 +94,29 @@ def test_cuda_is_the_default_device(tmp_path):
         ppo.train_iteration(cfg, wcfg, pcfg, pool, ps, ws, obs,
                             torch.Generator())
 
+    # DQN: the Q network, the learner, its unit and the trainer.
+    from safelife_tpu_torch.models.nets import SafeLifeQNetwork
+    from safelife_tpu_torch.training import dqn
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        SafeLifeQNetwork(num_channels=15)
+    qnet = SafeLifeQNetwork(view_shape=(17, 17), num_channels=1,
+                            device="cpu")
+    dcfg = dqn.DQNConfig(replay_size=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.init_dqn_state(dcfg, qnet, 2, (17, 17), torch.int32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.init_replay(8, (17, 17))
+    ds = dqn.init_dqn_state(dcfg, qnet, 2, (17, 17), torch.int32,
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.collect_and_optimize(cfg, wcfg, dcfg, pool, ds, ws, obs,
+                                 torch.Generator(), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.train_chunk(cfg, wcfg, dcfg, pool, ds, ws, obs,
+                        torch.Generator(), 1, 1)
+    assert ds.num_steps == 0 and ds.replay.idx == 0
+
     # The evaluation path and its pieces.
     from safelife_tpu_torch.io.iterator import LevelPoolManager
     from safelife_tpu_torch.side_effects import side_effect_score
@@ -113,10 +143,14 @@ def test_cuda_is_the_default_device(tmp_path):
                            num_envs=2, pool_size=2, procgen_workers=0)
     with pytest.raises(RuntimeError, match="cuda"):
         train.train_ppo(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train_dqn(None)
     it = SafeLifeLevelIterator("random/append-still", seed=1)
     with pytest.raises(RuntimeError, match="cuda"):
         LevelPoolManager(it, pool_size=2)
     assert it.idx == 0  # nothing generated
-    with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["train", str(tmp_path / "run"), "-e", "append-still"])
+    for algo in ("ppo", "dqn"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["train", str(tmp_path / "run"), "-e", "append-still",
+                      "--algo", algo])
     assert not os.path.exists(tmp_path / "run")

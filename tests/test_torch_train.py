@@ -28,6 +28,7 @@ from safelife_tpu.training import ppo as JPPO  # noqa: E402
 from safelife_tpu.utils import rng as JRNG  # noqa: E402
 from safelife_tpu_torch import __main__ as CLI  # noqa: E402
 from safelife_tpu_torch import loggers as TLOG  # noqa: E402
+from safelife_tpu_torch.models import nets as TN  # noqa: E402
 from safelife_tpu_torch.training import env_factory as TF  # noqa: E402
 from safelife_tpu_torch.training import global_config as TGC  # noqa: E402
 from safelife_tpu_torch.training import ppo as TPPO  # noqa: E402
@@ -128,15 +129,15 @@ def test_build_environments_matches_jax(task):
     assert JGC.config.check_for_unused() == TGC.config.check_for_unused()
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     for extra in ({"env.device_procgen": 8}, {"env.packed_obs": False}):
         _fresh()
         TGC.config.update({"env_type": "append-still", **extra})
         with pytest.raises(NotImplementedError, match="item (8|10)"):
             TF.build_environments(TGC.config, num_envs=4, pool_size=4,
                                   procgen_workers=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        CLI.main(["train", "--algo", "dqn", "--device", "cpu"])
+    # --algo dqn is ported: it trains, resumes and benchmarks on the CPU.
+    _check_dqn_cli(str(tmp_path / "dqn"))
     _fresh()
     with pytest.raises(ValueError, match="not a recognized task"):
         CLI.main(["train", "-e", "no-such-task", "--device", "cpu"])
@@ -157,6 +158,39 @@ def _train(data_dir, steps, batch=4, extra=()):
     _fresh()
     return CLI.main(["train", data_dir, "--batch", str(batch), "--steps",
                      str(steps), *CPU, *extra])
+
+
+DQN_CONFIG = {"dqn.replay_size": 512, "dqn.replay_initial": 64,
+              "dqn.report_interval": 512}
+
+
+def _check_dqn_cli(run):
+    """``--algo dqn``: train two chunks (32 units of 8 steps of 4 lanes),
+    resume one chunk more with the learner and target network restored,
+    then benchmark the checkpoint's Q network."""
+    cpu = CPU[:-1] + [json.dumps({**json.loads(CPU[-1]), **DQN_CONFIG})]
+    _fresh()
+    out = CLI.main(["train", run, "--algo", "dqn", "--batch", "4", "--steps",
+                    "2048", "--skip-benchmark", *cpu])
+    assert isinstance(out.model, TN.SafeLifeQNetwork)
+    assert out.state.num_steps == 2048 and out.state.replay.idx >= 64
+    assert _params_finite(out.model)
+    ckpt = CheckpointManager(run)
+    saved, _, _ = ckpt.restore(device="cpu")
+    assert ckpt.steps() == [2048] and "target_params" in saved
+    _fresh()
+    out = CLI.main(["train", run, "--algo", "dqn", "--batch", "4", "--steps",
+                    "3072", "--skip-benchmark", *cpu])
+    assert out.state.num_steps == 3072 and ckpt.steps() == [2048, 3072]
+    _fresh()
+    out = CLI.main(["train", run, "--algo", "dqn", "--run-type", "benchmark",
+                    "--benchmark-episodes", "1", *CPU])
+    assert out.state is None and out.summary["episodes"] == 1
+    latest, _, _ = ckpt.restore(device="cpu")
+    for k, v in out.model.state_dict().items():
+        assert torch.equal(v, latest["params"][k]), k
+    with open(os.path.join(run, "training.log")) as f:
+        assert "pcheck=" in f.read()
 
 
 def _params_finite(model):
