@@ -114,6 +114,22 @@ non-zero:
    target network, Adam, env state and pool restored) and ``--run-type
    benchmark --algo dqn``, each run's launches equal to
    ``predicted_launches``.
+9. The front end: ``registry.make("safelife-append-still-v1",
+   batch_size=64, auto_reset=False)`` on the card against the same on the
+   CPU (equal generated pools, then 200 steps of the same NumPy actions:
+   observations, rewards, done flags and boards exact; K1/K2/K3 launches
+   equal to ``make_launches``); ``make("safelife-prune-spawn-v1")`` with
+   auto-reset at 512 and 4096 lanes, a reset and 200 steps timed with
+   ``torch.cuda.synchronize()`` in turns with the bare ``env.step`` on the
+   same pool (actions already on the card), launches equal to
+   ``make_launches``; an ``interactive.GameLoop`` on the card and one on
+   the CPU played by ``PLAY_KEYS`` to the end of a 26x26 level without
+   spawners, their end-of-level summaries within 1e-9, the card's K2
+   launches equal to the occupancy's pre-steps plus 2 x 200, timed; a
+   1000-step history recorded on the card rendered by
+   ``render/graphics.render_board`` there and on the host (equal frames,
+   frames/s of each; no ``imageio``); ``variants.advance_board_general``
+   on the card against the CPU at ``spawn_prob`` 0.
 
 Then it times each kernel form and its plain version at the shapes of the
 path that runs it (the main path's at B = 512 and 4096, the large-board
@@ -1787,14 +1803,21 @@ def predicted_launches(calls):
     return {"fused_actions_advance": k1, "advance": k2, "recenter_views": k3}
 
 
-def check_trainer_launches(what, launches, calls):
-    """The launches counted in a trainer run against predicted_launches;
-    no global-memory form on 26x26 boards. Returns the prediction."""
-    want = predicted_launches(calls)
+def check_launches(what, launches, want):
+    """The launches counted (``ops.launch_counts()``, by form) against
+    ``want``; a form ``want`` does not name (the global-memory ones on
+    26x26 boards) must not have run."""
     for name, n in launches.items():
         if n != want.get(name, 0):
             raise AssertionError("%s launched %s %d times, the code says %d"
                                  % (what, name, n, want.get(name, 0)))
+
+
+def check_trainer_launches(what, launches, calls):
+    """The launches counted in a trainer run against predicted_launches.
+    Returns the prediction."""
+    want = predicted_launches(calls)
+    check_launches(what, launches, want)
     return want
 
 
@@ -2511,6 +2534,302 @@ def run_dqn_phase(dev, spawn, prune, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the front end
+
+#: The task of the card-vs-CPU check (no spawners: the card's and the CPU's
+#: generators draw different seed words), and of the timed runs (spawners,
+#: the default auto-reset), at the main path's widths.
+FRONT_END_TASK = "safelife-append-still-v1"
+FRONT_END_RATE_TASK = "safelife-prune-spawn-v1"
+FRONT_END_LANES = (LANES, 4096)
+FRONT_END_STEPS = 200
+#: Keys that play ``play_level`` to its end: up to the green block, destroy
+#: two of its cells (the rest dies), wait a step, walk round to the exit.
+PLAY_KEYS = ["UP", " ", "LEFT", "UP", " ", "c", "RIGHT", "RIGHT", "RIGHT",
+             "DOWN", "RIGHT"]
+PLAY_SAMPLES = 200  # interactive.GameLoop.end_of_level_summary's num_samples
+#: Tensor fields of a level pool that the card and the CPU must share.
+POOL_FIELDS = ("board", "goals", "agent_locs", "agent_mask", "points_table",
+               "min_performance", "spawn_prob", "exit_locs",
+               "exit_locs_valid", "goals_static", "reset_boards")
+
+
+def make_launches(pool, steps, resets=1):
+    """K1-K3 launches of ``resets`` resets and ``steps`` steps of a
+    ``make(...)`` env on ``pool``, derived from ``env/env.py``: K1 and K3
+    once a step, K3 once a reset, K2 once a step where goals evolve."""
+    return {"fused_actions_advance": steps,
+            "advance": 0 if pool.all_goals_static else steps,
+            "recenter_views": steps + resets}
+
+
+def check_make_against_cpu(dev, lanes=64, steps=FRONT_END_STEPS):
+    """``make(FRONT_END_TASK, auto_reset=False)`` on the card and on the
+    CPU from the same seed: equal pools, then the same NumPy actions for
+    ``steps`` steps with boards, observations, rewards and done flags
+    exact; the card's launches equal to ``make_launches``."""
+    from safelife_tpu_torch import ops, registry
+
+    envs = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        envs.append(registry.make(FRONT_END_TASK, batch_size=lanes, seed=8,
+                                  device=d, auto_reset=False))
+        made = time.perf_counter() - t0
+    card, host = envs
+    for f in POOL_FIELDS:
+        if not torch.equal(getattr(card.pool, f).cpu(),
+                           getattr(host.pool, f)):
+            raise AssertionError("make(...) pools differ in %s" % f)
+    rng = np.random.default_rng(8)
+    actions = rng.integers(0, 9, (steps, lanes)).astype(np.int32)
+    ops.reset_launch_counts()
+    obs = [e.reset().cpu() for e in envs]
+    if not torch.equal(*obs):
+        raise AssertionError("make(...) reset observations differ")
+    for t, a in enumerate(actions):
+        out = [[x.cpu() for x in e.step(a)[:3]] + [e.state.board.cpu()]
+               for e in envs]
+        for i, what in enumerate(("observations", "rewards", "done",
+                                  "boards")):
+            if not torch.equal(out[0][i], out[1][i]):
+                raise AssertionError("make(...) %s differ at step %d"
+                                     % (what, t))
+    launches = ops.launch_counts()
+    check_launches("make(...) on the card", launches,
+                   make_launches(card.pool, steps))
+    moved = int((card.state.board.cpu() != host.pool.board[
+        torch.arange(lanes) % host.pool.num_levels]).any(-1).any(-1).sum())
+    log("front end: make(%r, %d lanes, auto_reset=False) card vs CPU, %d "
+        "steps: observations, rewards, done, boards exact; %d lanes "
+        "changed; launches %s; a make() %.2f s (16 generated levels)"
+        % (FRONT_END_TASK, lanes, steps, moved, json.dumps(launches), made))
+    return launches
+
+
+def make_rate(dev, lanes, card, steps=FRONT_END_STEPS):
+    """env-steps/s of ``make(FRONT_END_RATE_TASK)`` (spawners, auto-reset)
+    at ``lanes`` lanes: a reset and ``steps`` steps of NumPy actions (one
+    host-to-device copy a step), against the bare ``env.step`` on the same
+    pool with the actions already on the card, in turns (make, bare, bare,
+    make) after a warm-up; the launches of the first make run equal to
+    ``make_launches``."""
+    from safelife_tpu_torch import ops, registry
+    from safelife_tpu_torch.env import env as E
+
+    env = registry.make(FRONT_END_RATE_TASK, batch_size=lanes, seed=9,
+                        device=dev)
+    rng = np.random.default_rng(lanes)
+    actions = rng.integers(0, 9, (steps, lanes)).astype(np.int32)
+    on_card = torch.from_numpy(actions).to(dev)[:, :, None]
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def with_make():
+        env.reset()
+        for a in actions:
+            env.step(a)
+
+    def bare():
+        state, _ = E.reset(env.cfg, env.pool, lanes)
+        for a in on_card:
+            state = E.step(env.cfg, env.pool, state, a, gen)[0]
+
+    env.reset()
+    for a in actions[:3]:
+        env.step(a)
+    torch.cuda.synchronize()
+    walls = {"make": [], "bare": []}
+    launches = None
+    for which in ("make", "bare", "bare", "make"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        (with_make if which == "make" else bare)()
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+        if launches is None:
+            launches = ops.launch_counts()
+            check_launches("make(...) at %d lanes" % lanes, launches,
+                           make_launches(env.pool, steps))
+    rate = {k: lanes * steps / (sum(v) / len(v)) for k, v in walls.items()}
+    out = {"lanes": lanes, "make": rate["make"], "bare": rate["bare"],
+           "ratio": rate["make"] / rate["bare"]}
+    log("front end: make(%r) at %d lanes x %d steps: %.0f env-steps/s "
+        "(walls %s s), bare env.step %.0f (walls %s s), ratio %.3f; "
+        "launches a run %s  [%s]"
+        % (FRONT_END_RATE_TASK, lanes, steps, out["make"],
+           ["%.4f" % w for w in walls["make"]], out["bare"],
+           ["%.4f" % w for w in walls["bare"]], out["ratio"],
+           json.dumps(launches), card))
+    return out
+
+
+def play_level(path, n=26):
+    """A level without spawners: the agent in the middle facing up, a green
+    block (a still life) on green goals above it, an exit to its right, and
+    no points needed to leave."""
+    from safelife_tpu_torch.core import cells as C
+    from safelife_tpu_torch.core.scoring import DEFAULT_POINTS_TABLE
+    from safelife_tpu_torch.io import levels as L
+
+    c = n // 2
+    board = np.zeros((n, n), np.int32)
+    goals = np.zeros((n, n), np.int32)
+    board[c, c] = C.PLAYER
+    board[c - 3:c - 1, c - 1:c + 1] = C.LIFE | C.COLOR_G
+    goals[c - 4:c, c - 2:c + 2] = C.COLOR_G
+    board[c, c + 3] = C.LEVEL_EXIT
+    L.save_level(L.Level(
+        board=board, goals=goals, agent_locs=np.array([[c, c]]),
+        agent_names=np.array(["agent0"]),
+        points_table=DEFAULT_POINTS_TABLE[None].astype(np.int32),
+        min_performance=0.0, spawn_prob=0.3, name="play-still"), path)
+    return path
+
+
+def check_play_summary(dev, card):
+    """A ``GameLoop`` on the card and one on the CPU, played by PLAY_KEYS
+    to the end of ``play_level``: the end-of-level summary (side effects
+    with ``num_samples`` 200, their weighted total, the combined score)
+    equal within 1e-9, the card's K2 launches equal to the occupancy's
+    pre-steps plus 2 x 200 (and no K1 or K3), the recording written."""
+    import os
+    import shutil
+
+    from safelife_tpu_torch import interactive, ops
+    from safelife_tpu_torch.io.iterator import SafeLifeLevelIterator
+
+    work = os.path.join("runs", "chip-smoke-play-%d" % os.getpid())
+    os.makedirs(work)
+    try:
+        level = play_level(os.path.join(work, "play-still.npz"))
+        results = []
+        for d in (dev, torch.device("cpu")):
+            loop = interactive.GameLoop(
+                SafeLifeLevelIterator(level, seed=1),
+                record_to=os.path.join(work, d.type), device=d)
+            loop.next_level(+1)
+            for key in PLAY_KEYS:
+                loop.handle_play_key(key)
+            if loop.game.game_over is not True:
+                raise AssertionError("the scripted keys did not end the "
+                                     "level on %s" % d)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            se, score = loop.end_of_level_summary()
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            results.append((se, score, time.perf_counter() - t0,
+                            ops.launch_counts()))
+            if not os.path.exists(loop.save_recording()):
+                raise AssertionError("no recording on %s" % d)
+        (cse, cscore, cs, launches), (hse, hscore, hs, _) = results
+        if set(cse) != set(hse):
+            raise AssertionError("summary keys differ: %s vs %s"
+                                 % (sorted(cse), sorted(hse)))
+        err = abs(cscore - hscore)
+        for k in cse:
+            err = max(err, float(np.max(np.abs(np.subtract(cse[k],
+                                                           hse[k])))))
+        if err > 1e-9:
+            raise AssertionError("play summary card vs CPU differs by %g"
+                                 % err)
+        steps = loop.game.num_steps
+        check_launches("play's summary", launches, {
+            "fused_actions_advance": 0, "recenter_views": 0,
+            "advance": max(steps, 1) + 2 * PLAY_SAMPLES})
+    finally:
+        shutil.rmtree(work)
+    log("front end: play's end-of-level summary after %d steps on a 26x26 "
+        "still level: %.3f s on the card, %.3f s on the CPU; card vs CPU "
+        "max |d| %.2e; life-green %s, score %.3f; launches %s  [%s]"
+        % (steps, cs, hs, err, cse.get("life-green"), cscore,
+           json.dumps(launches), card))
+    return {"seconds": cs, "launches": launches}
+
+
+def check_history_render(dev, levels, card, steps=1000):
+    """A 1000-step history of one prune-spawn v1.0 level recorded on the
+    card (random actions, no auto-reset), rendered by
+    ``render/graphics.render_board`` on the card and on the host: equal
+    frames; frames/s of each."""
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.render.graphics import render_board
+
+    pool = pack_levels(levels[:1], device=dev)
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None,
+                      auto_reset=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state, _ = E.reset(cfg, pool, 1)
+    acts = torch.randint(0, 9, (steps, 1, 1), dtype=torch.int32,
+                         generator=gen, device=dev)
+    boards, goals = [state.board[0]], [state.goals[0]]
+    for a in acts:
+        state = E.step(cfg, pool, state, a, gen)[0]
+        boards.append(state.board[0])
+        goals.append(state.goals[0])
+    boards, goals = torch.stack(boards), torch.stack(goals)
+    render_board(boards[:2], goals[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = render_board(boards, goals)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    hb, hg = boards.cpu().numpy(), goals.cpu().numpy()
+    t0 = time.perf_counter()
+    on_host = render_board(hb, hg)
+    host_s = time.perf_counter() - t0
+    if not isinstance(on_card, torch.Tensor) or on_card.device != dev:
+        raise AssertionError("render_board of a card tensor left the card")
+    if not torch.equal(on_card.cpu(), torch.from_numpy(on_host)):
+        raise AssertionError("the card's render differs from the host's")
+    n = boards.shape[0]
+    log("front end: render_board of a %d-frame card history (%dx%d): equal "
+        "to the host's; card %.0f frames/s (%.4f s), host %.0f frames/s "
+        "(%.4f s)  [%s]"
+        % (n, boards.shape[1], boards.shape[2], n / card_s, card_s,
+           n / host_s, host_s, card))
+    return {"card_fps": n / card_s, "host_fps": n / host_s}
+
+
+def check_variants(dev):
+    """``variants.advance_board_general`` on the card against the CPU with
+    ``spawn_prob`` 0 (no draw matters), on soups with spawners over two
+    leading batch dims and three rules."""
+    from safelife_tpu_torch import variants
+
+    boards, _ = soup(np.random.default_rng(12), 8 * 64, 26, 26, 1,
+                     spawners=True)
+    boards = torch.from_numpy(boards.reshape(8, 64, 26, 26))
+    changed = 0
+    for born, survive in (((3,), (2, 3)), ((3, 6), (2, 3)),
+                          ((1, 2, 3, 4, 5, 6, 7, 8), tuple(range(9)))):
+        out = [variants.advance_board_general(
+            boards.to(d), torch.Generator(device=d).manual_seed(0), 0.0,
+            born, survive).cpu() for d in (dev, torch.device("cpu"))]
+        if not torch.equal(*out):
+            raise AssertionError("advance_board_general differs on the "
+                                 "card (B%s/S%s)" % (born, survive))
+        changed += int((out[0] != boards).sum())
+    log("front end: variants.advance_board_general on (8, 64, 26, 26) "
+        "soups with spawners, spawn_prob 0, 3 rules: card equal to the "
+        "CPU; %d cells changed" % changed)
+
+
+def run_front_end_phase(dev, prune_spawn, card):
+    """Phase 9: make(...) card vs CPU and its rate at FRONT_END_LANES, the
+    play summary, a history's render and the rule variants."""
+    t0 = time.perf_counter()
+    check_make_against_cpu(dev)
+    rates = [make_rate(dev, lanes, card) for lanes in FRONT_END_LANES]
+    play = check_play_summary(dev, card)
+    render = check_history_render(dev, prune_spawn, card)
+    check_variants(dev)
+    log("front end (phase 9): %.1f s" % (time.perf_counter() - t0))
+    return {"rates": rates, "play": play, "render": render}
+
+
+# ---------------------------------------------------------------------------
 
 
 #: Kernel form -> (source, the TPU kernel it replaces, its kernel's name in
@@ -2628,6 +2947,9 @@ def main():
     # Phase 8
     dqn_chunks, dqn_cli = run_dqn_phase(dev, spawn, prune, card)
 
+    # Phase 9
+    front = run_front_end_phase(dev, prune_spawn, card)
+
     # Timings at the main path's shapes (B = 512 and 4096) and at the
     # large-board path's.
     from safelife_tpu_torch.env.state import pack_levels
@@ -2673,6 +2995,14 @@ def main():
         % (CLI_LANES, dqn_cli["wall"], dqn_cli["train"],
            dqn_cli["steps"] / dqn_cli["train"],
            json.dumps(dqn_cli["launches"]), card))
+    for r in front["rates"]:
+        log("front end (phase 9) at %d lanes: make(...).step %.0f env-steps/s"
+            ", bare env.step %.0f, ratio %.3f  [%s]"
+            % (r["lanes"], r["make"], r["bare"], r["ratio"], card))
+    log("front end (phase 9): play's summary %.3f s (K2 %d launches); "
+        "render %.0f frames/s on the card, %.0f on the host  [%s]"
+        % (front["play"]["seconds"], front["play"]["launches"]["advance"],
+           front["render"]["card_fps"], front["render"]["host_fps"], card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []

@@ -10,7 +10,7 @@ Quick map:
 
 * ``python -m safelife_tpu_torch train DIR -e append-still`` — the
   trainer's CLI (:mod:`safelife_tpu_torch.__main__`; ``--device cpu`` for
-  the CPU).
+  the CPU), with the verbs ``print``, ``new``, ``render`` and ``play``.
 * :mod:`safelife_tpu_torch.io.levels` — level files; ``load_levels`` for
   ``.npz`` files.
 * :mod:`safelife_tpu_torch.procgen` — the level generator (the native
@@ -29,6 +29,11 @@ Quick map:
   :mod:`safelife_tpu_torch.training.checkpoints` — checkpoints.
 * :mod:`safelife_tpu_torch.training.env_factory` — ``build_environments``;
   :mod:`safelife_tpu_torch.training.train` — ``train_ppo``.
+* The front end: :mod:`safelife_tpu_torch.registry` — ``make``, the gym-like
+  batched env; :mod:`safelife_tpu_torch.game` — the host game and editor;
+  :mod:`safelife_tpu_torch.interactive` (and ``interactive_gl``) — the
+  ``play`` verb; :mod:`safelife_tpu_torch.render` — text and sprites;
+  :mod:`safelife_tpu_torch.variants` — rule variants.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card they raise.

@@ -1,11 +1,19 @@
-"""Command-line interface: ``python -m safelife_tpu_torch train DIR``.
+"""Command-line interface: ``python -m safelife_tpu_torch <command>``.
 
-Port of ``safelife_tpu/__main__.py``: ``main`` with the ``train`` verb
-(``:43-66``) and a ``--device`` flag (``cuda`` unless ``cpu`` is asked
-for), ``_confirm_data_dir`` (``:124-159``) and ``cmd_train``
-(``:162-265``) for one process, ``--algo ppo`` or ``dqn``; the verbs
-``print``, ``play``, ``new``, ``render`` and ``bench`` and ``--wandb`` are
-not ported (ROADMAP.md queue 1 item 9).
+Port of ``safelife_tpu/__main__.py``: ``main`` (``:35-121``) with the
+verbs
+
+* ``train``  — PPO or DQN training on a task (``--algo ppo|dqn``).
+* ``print``  — generate or load levels and print them to the terminal.
+* ``play``   — the interactive terminal (``--gl``: pygame) game.
+* ``new``    — generate levels and save them to disk.
+* ``render`` — render level files to png/gif/mp4.
+
+``train`` and ``play`` take ``--device`` (``cuda`` unless ``cpu`` is asked
+for); ``_confirm_data_dir`` (``:124-159``), ``cmd_train`` (``:162-265``)
+for one process, ``_iter_levels``, ``cmd_print``, ``cmd_new`` and
+``cmd_render`` (``:268-312``). Not ported: ``bench`` (JAX's ``bench.py``;
+the port's benchmark is for a later change) and ``--wandb`` (ROADMAP.md).
 """
 
 import argparse
@@ -17,7 +25,8 @@ import types
 
 
 def main(argv=None):
-    """Parse ``argv`` and run the verb. Returns what the verb returns."""
+    """Parse ``argv`` and run the verb. Returns what the verb returns
+    (``train``: the run's namespace; the others: None)."""
     parser = argparse.ArgumentParser(prog="safelife_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -47,11 +56,56 @@ def main(argv=None):
                          help="where the environment and the learner run "
                               "(default: the CUDA card)")
 
+    p_print = sub.add_parser("print", help="print levels to the terminal")
+    p_print.add_argument("paths", nargs="+")
+    p_print.add_argument("--seed", type=int, default=None)
+    p_print.add_argument("-n", "--num", type=int, default=1)
+
+    p_play = sub.add_parser("play", help="interactive terminal game")
+    p_play.add_argument("paths", nargs="*", default=["random/append-still"])
+    p_play.add_argument("--seed", type=int, default=None)
+    p_play.add_argument("--centered", action="store_true")
+    p_play.add_argument("--record", default=None, metavar="DIR",
+                        help="save play history as rec-NNN.npz files "
+                             "under DIR")
+    p_play.add_argument("--gl", action="store_true",
+                        help="graphical window (pygame) instead of the "
+                             "terminal renderer")
+    p_play.add_argument("--device", choices=("cuda", "cpu"),
+                        default="cuda",
+                        help="where the end-of-level side effects are "
+                             "scored (default: the CUDA card)")
+
+    p_new = sub.add_parser("new", help="generate and save levels")
+    p_new.add_argument("param_file")
+    p_new.add_argument("out", help="output file or directory")
+    p_new.add_argument("-n", "--num", type=int, default=1)
+    p_new.add_argument("--seed", type=int, default=None)
+    p_new.add_argument("--archive", action="store_true",
+                       help="pack all levels into one npz archive")
+
+    p_render = sub.add_parser("render", help="render levels to images/video")
+    p_render.add_argument("paths", nargs="+")
+    p_render.add_argument("--steps", type=int, default=0,
+                          help="evolve the board and render a movie")
+    p_render.add_argument("--fmt", default=None,
+                          choices=(None, "png", "gif", "mp4"))
+
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    return cmd_train(args)
+
+    if args.cmd == "train":
+        return cmd_train(args)
+    if args.cmd == "print":
+        return cmd_print(args)
+    if args.cmd == "play":
+        from .interactive import play_cmd
+        return play_cmd(args)
+    if args.cmd == "new":
+        return cmd_new(args)
+    return cmd_render(args)
 
 
 def _confirm_data_dir(data_dir):
@@ -170,6 +224,51 @@ def cmd_train(args):
             tb_proc.terminate()
         if bundle is not None:
             bundle.pool_manager.close()  # the procgen workers
+
+
+def _iter_levels(paths, seed, num):
+    from .io.iterator import SafeLifeLevelIterator
+
+    it = SafeLifeLevelIterator(*paths, seed=seed)
+    for _ in range(num):
+        try:
+            yield next(it)
+        except StopIteration:
+            return
+
+
+def cmd_print(args):
+    from .render.text import render_board
+
+    for lv in _iter_levels(args.paths, args.seed, args.num):
+        print("#", lv.name)
+        sys.stdout.write(render_board(lv.board, lv.goals))
+        print()
+
+
+def cmd_new(args):
+    from .io.levels import save_archive, save_level
+
+    levels = list(_iter_levels([args.param_file], args.seed, args.num))
+    if args.archive or args.out.endswith(".npz") and args.num > 1:
+        save_archive(levels, args.out)
+        print("wrote %d levels to %s" % (len(levels), args.out))
+    elif args.num == 1:
+        save_level(levels[0], args.out)
+        print("wrote %s" % args.out)
+    else:
+        os.makedirs(args.out, exist_ok=True)
+        for i, lv in enumerate(levels):
+            save_level(lv, os.path.join(args.out, "level-%03d.npz" % i))
+        print("wrote %d levels to %s/" % (len(levels), args.out))
+
+
+def cmd_render(args):
+    from .render.graphics import render_file
+
+    for path in args.paths:
+        out = render_file(path, steps=args.steps, movie_format=args.fmt)
+        print("rendered", out)
 
 
 if __name__ == "__main__":

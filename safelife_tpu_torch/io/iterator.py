@@ -8,7 +8,9 @@ path (``:166-222``: a nonzero ``device_batch`` raises), and
 ``LevelPoolManager`` (``__init__`` ``:310-331``, ``close``,
 ``restore_pool`` ``:370-460``, ``level_meta`` ``:504-538``, ``refresh``
 ``:540-705``, ``_level_compatible`` ``:707-729``) with ``_swap_rows``
-(``:822-833``).
+(``:822-833``), and the archive tools ``gen_many``, ``combine_levels``,
+``expand_levels``, ``BENCHMARK_TASKS`` and ``gen_benchmarks``
+(``:733-819``).
 
 Levels are generated on the host with NumPy, SciPy and the native
 annealer, in forked worker processes when ``num_workers`` > 0. A worker
@@ -423,6 +425,103 @@ class LevelPoolManager:
         if self.pool.all_goals_static and not goals_are_static(lv.goals):
             return False
         return True
+
+
+# ---------------------------------------------------------------------------
+# Archive tooling (parity: reference level_iterator.py:290-357)
+
+
+def gen_many(param_file, out_dir, num_gen, num_workers=8, seed=None):
+    """Generate ``num_gen`` levels from a procgen param file into
+    ``out_dir`` as individual ``<basename>-NNN.npz`` files.
+
+    Existing files are kept (resumable), like the reference's generator.
+    """
+    out_dir = os.path.abspath(out_dir)
+    base_name = os.path.basename(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    digits = len(str(num_gen))
+    it = SafeLifeLevelIterator(param_file, num_workers=num_workers,
+                               seed=seed)
+    try:
+        for k in range(1, num_gen + 1):
+            fname = os.path.join(
+                out_dir, "%s-%0*d.npz" % (base_name, digits, k))
+            lv = next(it)  # always consume: a resumed seeded run keeps
+            if os.path.exists(fname):  # the stream aligned with the files
+                continue
+            L.save_level(lv, fname)
+    finally:
+        it.close()
+
+
+def combine_levels(directory, out_file=None):
+    """Merge every single-level ``.npz`` in ``directory`` into one archive
+    (structured array under key ``levels``, reference-compatible)."""
+    import glob
+
+    files = sorted(glob.glob(os.path.join(directory, "*.npz")))
+    if not files:
+        raise FileNotFoundError("no .npz levels in %s" % directory)
+    levels = []
+    for f in files:
+        lv = L.load_levels(f)[0]
+        lv.name = os.path.basename(f)
+        levels.append(lv)
+    out_file = out_file or directory.rstrip("/") + ".npz"
+    L.save_archive(levels, out_file)
+    return out_file
+
+
+def expand_levels(file_name, out_dir=None):
+    """Opposite of :func:`combine_levels`: split an archive into files."""
+    out_dir = out_dir or file_name[:-4]
+    os.makedirs(out_dir, exist_ok=True)
+    for lv in L.load_levels(file_name):
+        name = lv.name if lv.name.endswith(".npz") else lv.name + ".npz"
+        L.save_level(lv, os.path.join(out_dir, os.path.basename(name)))
+    return out_dir
+
+
+BENCHMARK_TASKS = (
+    "append-still", "append-dynamic", "append-spawn",
+    "prune-dynamic", "prune-spawn", "prune-still", "prune-still-hard",
+    "navigation",
+)
+
+
+def gen_benchmarks(out_dir, tasks=BENCHMARK_TASKS, num=100, seed=20260816,
+                   num_workers=8):
+    """Generate benchmark archives: ``num`` frozen levels per task, one
+    archive ``<out_dir>/<task>.npz`` a task (kept if it exists).
+    Deterministic given ``seed``; the canonical suite is the shipped
+    frozen v1.0.
+
+    ``out_dir`` is required. JAX's default, ``<levels>/benchmarks/v1``,
+    lies in the JAX package's level tree, which the port only reads
+    (:data:`.levels.LEVEL_DIRECTORY`).
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    root = np.random.SeedSequence(seed)
+    outs = []
+    for task, task_seed in zip(tasks, root.spawn(len(tasks))):
+        out_file = os.path.join(out_dir, task + ".npz")
+        if os.path.exists(out_file):
+            outs.append(out_file)
+            continue
+        it = SafeLifeLevelIterator("random/" + task, seed=task_seed,
+                                   num_workers=num_workers)
+        try:
+            levels = []
+            for i in range(num):
+                lv = next(it)
+                lv.name = "%s-%03d.npz" % (task, i + 1)
+                levels.append(lv)
+        finally:
+            it.close()
+        L.save_archive(levels, out_file)
+        outs.append(out_file)
+    return outs
 
 
 def _swap_rows(pool, fresh, idx):

@@ -9,8 +9,10 @@ stats, optional tensorboardX/wandb scalars with polyak summary averaging),
 200·side_effects), ``summarize_run_file`` and ``summarize_run``. The files
 written are the JAX package's, so its tools read the port's runs.
 
-An episode history is saved as the same ``.npz``; the mp4 render of it
-(``render/graphics.py``) is not ported yet, so none is made.
+An episode history is saved as the same ``.npz`` and rendered beside it
+as a movie by :func:`.render.graphics.render_file` (``:206-223``), as
+best-effort as JAX's: a host without ``imageio`` logs a warning and keeps
+the ``.npz``.
 """
 
 import json
@@ -212,6 +214,11 @@ class SafeLifeLogger:
             vname = os.path.join(self.logdir, vname) + '.npz'
             if not os.path.exists(vname):
                 np.savez_compressed(vname, **history)
+                try:
+                    from .render.graphics import render_file
+                    render_file(vname, movie_format="mp4")
+                except Exception as e:  # video rendering is best-effort
+                    logger.warning("could not render video: %s", e)
 
         self.log_scalars(tb_data, tag=tag)
         self.last_data = log_data

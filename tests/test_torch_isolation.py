@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of safelife_tpu_torch
-(and chip_smoke.py) pulls in neither JAX nor the JAX package and builds
-nothing, and its entry points refuse to run on the CPU unless asked to."""
+(and chip_smoke.py) pulls in neither JAX nor the JAX package (nor pygame or
+imageio, which the card's host lacks) and builds nothing, and its entry
+points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -32,7 +33,8 @@ for name in names:
 import chip_smoke
 from safelife_tpu_torch import native
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "safelife_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "safelife_tpu",
+                                    "pygame", "imageio"))
 print(len(names), len(compilers), native._lib, bad)
 """
 
@@ -42,9 +44,13 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, started, lib, bad = out.stdout.strip().split(" ", 3)
-    # 42 modules, training.dqn among them.
-    assert int(n) >= 42
-    assert "safelife_tpu_torch.training.dqn" in _modules()
+    # 48 modules, training.dqn and the front end among them.
+    assert int(n) >= 48
+    assert {"safelife_tpu_torch.training.dqn", "safelife_tpu_torch.game",
+            "safelife_tpu_torch.registry", "safelife_tpu_torch.interactive",
+            "safelife_tpu_torch.interactive_gl",
+            "safelife_tpu_torch.variants",
+            "safelife_tpu_torch.render.graphics"} <= _modules()
     assert bad == "[]"
     # Importing builds nothing: no compiler started, no library loaded.
     assert started == "0" and lib == "None"
@@ -154,3 +160,17 @@ def test_cuda_is_the_default_device(tmp_path):
             cli.main(["train", str(tmp_path / "run"), "-e", "append-still",
                       "--algo", algo])
     assert not os.path.exists(tmp_path / "run")
+
+    # The front end: make, the game loop and the play verb; nothing is
+    # generated before the device is refused.
+    from safelife_tpu_torch import interactive, registry
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.make("safelife-append-still-v1")
+    with pytest.raises(RuntimeError, match="cuda"):
+        interactive.GameLoop(it)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["play", "benchmarks/v1.0/append-still.npz"])
+    assert it.idx == 0
+    assert interactive.GameLoop(it, device="cpu").device == \
+        torch.device("cpu")
