@@ -130,11 +130,34 @@ non-zero:
    ``render/graphics.render_board`` there and on the host (equal frames,
    frames/s of each; no ``imageio``); ``variants.advance_board_general``
    on the card against the CPU at ``spawn_prob`` 0.
+10. The modes the trainer once refused. Precision: phase 5's training
+   iteration at 4096 and 64 lanes under ``float32``, ``tensorfloat32`` and
+   ``bfloat16`` (a warm-up and 2 timed iterations, launches K1-K3 20 an
+   iteration, a rollout and an update timed apart, a profile of the
+   update); each new mode's first-minibatch loss and gradients against
+   strict float32 on the card (``MODE_BOUNDS``; the layer probe sees TF32
+   exactly under ``tensorfloat32`` and bfloat16 layer outputs under
+   ``bfloat16``), and at 64 lanes the card against the CPU in that mode.
+   Channels (``packed_obs`` false): 200 steps of prune-dynamic at 64 lanes,
+   uint8 channels and boards card vs CPU exact, launches as derived; a PPO
+   iteration and a 32-unit DQN chunk (100,000-entry replay) at 4096 lanes
+   in turns with the packed mode, their observation bytes, and the same
+   loss from both forms of the same samples. The oracle step: 100 steps of
+   a 26x26 board with spawners on the card and the CPU from equal PCG64
+   states, boards and states equal. Device procgen: ``gen_games_batched``
+   for append-still at batches 8 and 256 beside the host generator (one
+   process, 4 forked workers), every level checked for its still-life
+   invariant. The CLI at 64 lanes, 20,480 steps and an 8-episode
+   benchmark, once with ``-x '{"train.precision": "bfloat16",
+   "env.packed_obs": false}'`` and once with ``-x '{"env.device_procgen":
+   64}'`` (its start-up and each 64-level device round timed); each run
+   logs, checkpoints and benchmarks with launches equal to
+   ``predicted_launches``.
 
-Then it times each kernel form and its plain version at the shapes of the
-path that runs it (the main path's at B = 512 and 4096, the large-board
-path's at B = 64), holding their outputs there against each other too, and
-prints, before the last line, the card's name and power limit as
+Between phases 9 and 10 it times each kernel form and its plain version
+at the shapes of the path that runs it (the main path's at B = 512 and
+4096, the large-board path's at B = 64), holding their outputs there
+against each other too, and prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line. The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -265,14 +288,17 @@ def random_policy_tree(rng, n_channels, view):
     }}
 
 
-def policy(tree, device):
+def policy(tree, device, precision="float32", channels=False):
+    """The dense-512 policy of ``tree`` in ``precision``, on packed views
+    or, with ``channels``, on uint8 channels."""
     from safelife_tpu_torch.models.convert import policy_params_from_flax
     from safelife_tpu_torch.models.nets import (SafeLifePolicyNetwork,
                                                 TRAINING_CHANNELS)
 
-    net = SafeLifePolicyNetwork(view_shape=VIEW,
-                                unpack_channels=TRAINING_CHANNELS,
-                                device=device)
+    obs = ({"num_channels": len(TRAINING_CHANNELS)} if channels
+           else {"unpack_channels": TRAINING_CHANNELS})
+    net = SafeLifePolicyNetwork(view_shape=VIEW, device=device,
+                                precision=precision, **obs)
     net.load_state_dict(policy_params_from_flax(tree))
     return net.eval()
 
@@ -977,19 +1003,24 @@ TRAIN_LANES = (4096, 64)
 TRAIN_ITERS = 3
 
 
-def training_setup(dev, levels, tree, lanes, seed):
+def training_setup(dev, levels, tree, lanes, seed, precision="float32",
+                   channels=False):
     """The training path at full width: the inaction baseline, PPOConfig
-    defaults, packed 25x25 views, the dense-512 policy from ``tree``."""
+    defaults, packed 25x25 views (uint8 channels with ``channels``), the
+    dense-512 policy from ``tree`` in ``precision``."""
     from safelife_tpu_torch.env import env as E, wrappers as W
     from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
     from safelife_tpu_torch.training import ppo as P
 
     pool = pack_levels(levels, device=dev)
+    out = TRAINING_CHANNELS if channels else None
     run = dict(
-        pool=pool, cfg=E.EnvConfig(view_shape=VIEW, output_channels=None),
+        pool=pool, cfg=E.EnvConfig(view_shape=VIEW, output_channels=out),
         wcfg=W.WrapperConfig(se_baseline="inaction"), pcfg=P.PPOConfig(),
         gen=torch.Generator(device=dev).manual_seed(seed), dev=dev)
-    run["ps"] = P.init_ppo_state(run["pcfg"], policy(tree, dev), device=dev)
+    run["ps"] = P.init_ppo_state(
+        run["pcfg"], policy(tree, dev, precision, channels), device=dev)
     run["ws"], run["obs"] = W.reset(run["cfg"], run["wcfg"], pool, lanes,
                                     device=dev)
     return run
@@ -1206,8 +1237,39 @@ def tf32_probe(model):
             h.remove()
 
 
-def learner_diffs(dev, tree, state, batch, seed=12):
-    """The learner on the card against the CPU path: from parameters
+def first_minibatch(cfg, net, batch, first):
+    """The loss of the samples ``first`` of ``batch`` and its gradients
+    ({name: tensor on the CPU}), in ``net``'s precision."""
+    from safelife_tpu_torch.models.nets import learner_precision
+    from safelife_tpu_torch.training import ppo as P
+
+    d = next(net.parameters()).device
+    mb = {k: v.index_select(0, first.to(d)) for k, v in batch.items()}
+    with learner_precision(net.precision, d.type):
+        loss, _ = P.calculate_loss(
+            cfg, net, mb["obs"], mb["actions"], mb["action_prob"],
+            mb["values"], mb["returns"], mb["advantages"], mb["weight"])
+        loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def first_indices(cfg, n, seed):
+    """The epochs' permutations of ``learner_diffs`` for ``n`` samples and
+    the first minibatch's indices."""
+    from safelife_tpu_torch.training import ppo as P
+
+    rng = np.random.default_rng(seed)
+    perms = [rng.permutation(n) for _ in range(cfg.epochs_per_batch)]
+    first = torch.from_numpy(perms[0][slice(*P._minibatch_bounds(
+        n, cfg.num_minibatches)[0])])
+    return perms, first
+
+
+def learner_diffs(dev, tree, state, batch, seed=12, precision="float32"):
+    """The learner on the card against the CPU path, both in
+    ``precision``: from parameters
     ``state`` (loaded into ``tree``'s network), the first minibatch's loss
     and gradients, then one ``train_on_batch`` of ``batch`` with the same
     permutations on both. Returns the loss's relative difference; the
@@ -1217,35 +1279,21 @@ def learner_diffs(dev, tree, state, batch, seed=12):
     over the norm of the update, its largest element and how many differ
     by more than 1e-5; and, on the card, how many layer runs (forward and
     backward) allowed TF32, of how many."""
-    from safelife_tpu_torch.models import nets
     from safelife_tpu_torch.training import ppo as P
 
     cfg = P.PPOConfig()
-    n = batch["obs"].shape[0]
-    rng = np.random.default_rng(seed)
-    perms = [rng.permutation(n) for _ in range(cfg.epochs_per_batch)]
-    first = torch.from_numpy(perms[0][slice(*P._minibatch_bounds(
-        n, cfg.num_minibatches)[0])])
+    perms, first = first_indices(cfg, batch["obs"].shape[0], seed)
     sides = []
     for d in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
-        net = policy(tree, d)
+        net = policy(tree, d, precision)
         net.load_state_dict(state)
         b = {k: v.to(d) for k, v in batch.items()}
-        mb = {k: v.index_select(0, first.to(d)) for k, v in b.items()}
         with tf32_probe(net) as tf32:
-            with nets.strict_float32():
-                loss, _ = P.calculate_loss(
-                    cfg, net, mb["obs"], mb["actions"], mb["action_prob"],
-                    mb["values"], mb["returns"], mb["advantages"],
-                    mb["weight"])
-                loss.backward()
-            grads = {k: p.grad.detach().cpu()
-                     for k, p in net.named_parameters()}
-            net.zero_grad(set_to_none=True)
+            loss, grads = first_minibatch(cfg, net, b, first)
             P.train_on_batch(cfg, P.init_ppo_state(cfg, net, device=d), b,
                              None, perms=perms)
-        sides.append((loss.item(), grads, tf32,
+        sides.append((loss, grads, tf32,
                       {k: v.cpu() for k, v in net.state_dict().items()},
                       time.perf_counter() - t0))
     (lc, gc, tf32, pc, card_s), (lh, gh, _, ph, cpu_s) = sides
@@ -1253,16 +1301,10 @@ def learner_diffs(dev, tree, state, batch, seed=12):
     def flat(tree_):
         return torch.cat([tree_[k].flatten() for k in gh]).double()
 
-    g_diff, g_ref = flat({k: gc[k] - gh[k] for k in gh}), flat(gh)
     p_diff = flat({k: pc[k] - ph[k] for k in gh})
     moved = flat({k: ph[k] - state[k].cpu() for k in gh})
     return {
-        "loss": abs(lc - lh) / max(abs(lh), 1e-30),
-        "grad_norm": float(g_diff.norm() / g_ref.norm()),
-        "grad_tensor_norm": max(float((gc[k] - gh[k]).norm() / gh[k].norm())
-                                for k in gh),
-        "grad_tensor_max": max(float((gc[k] - gh[k]).abs().max()
-                                     / gh[k].abs().max()) for k in gh),
+        **grad_diffs(lc, gc, lh, gh),
         "update_norm": float(p_diff.norm() / moved.norm()),
         "param_max": float(p_diff.abs().max()),
         "params_over_1e-5": int((p_diff.abs() > 1e-5).sum()),
@@ -1272,6 +1314,25 @@ def learner_diffs(dev, tree, state, batch, seed=12):
         "steps": cfg.epochs_per_batch * (cfg.num_minibatches + 1),
         "card_s": card_s,
         "cpu_s": cpu_s,
+    }
+
+
+def grad_diffs(loss, grads, ref_loss, ref_grads):
+    """The loss's relative difference from ``ref_loss``; the gradients'
+    over all parameters (norm), and per tensor (the largest norm ratio,
+    and the largest element over the tensor's largest magnitude)."""
+    keys = list(ref_grads)
+    diff = torch.cat([(grads[k] - ref_grads[k]).flatten()
+                      for k in keys]).double()
+    ref = torch.cat([ref_grads[k].flatten() for k in keys]).double()
+    return {
+        "loss": abs(loss - ref_loss) / max(abs(ref_loss), 1e-30),
+        "grad_norm": float(diff.norm() / ref.norm()),
+        "grad_tensor_norm": max(float((grads[k] - ref_grads[k]).norm()
+                                      / ref_grads[k].norm()) for k in keys),
+        "grad_tensor_max": max(float((grads[k] - ref_grads[k]).abs().max()
+                                     / ref_grads[k].abs().max())
+                               for k in keys),
     }
 
 
@@ -2130,17 +2191,18 @@ DQN_CPU_REPLAY = 4096
 DQN_CPU_INITIAL = 256
 
 
-def q_network(dev, seed):
-    """The Q network on packed 25x25 views, with torch's default init drawn
-    on the CPU from ``seed`` (the same parameters on every device)."""
+def q_network(dev, seed, channels=False):
+    """The Q network on packed 25x25 views (uint8 channels with
+    ``channels``), with torch's default init drawn on the CPU from
+    ``seed`` (the same parameters on every device)."""
     from safelife_tpu_torch.models.nets import (SafeLifeQNetwork,
                                                 TRAINING_CHANNELS)
 
+    obs = ({"num_channels": len(TRAINING_CHANNELS)} if channels
+           else {"unpack_channels": TRAINING_CHANNELS})
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        net = SafeLifeQNetwork(view_shape=VIEW,
-                               unpack_channels=TRAINING_CHANNELS,
-                               device="cpu")
+        net = SafeLifeQNetwork(view_shape=VIEW, device="cpu", **obs)
     return net.to(dev)
 
 
@@ -2240,8 +2302,9 @@ def dqn_unit(run, actions=None, sample_idx=None):
 
 
 def dqn_setup(dev, pool, lanes, env_cfg, wcfg, seed, **cuts):
-    """A DQN learner at full width (the Q network on packed 25x25 views,
-    ``DQNConfig()`` with ``cuts``) on ``lanes`` fresh lanes of ``pool``."""
+    """A DQN learner at full width (the Q network on the views of
+    ``env_cfg``: packed 25x25, or uint8 channels, ``DQNConfig()`` with
+    ``cuts``) on ``lanes`` fresh lanes of ``pool``."""
     from safelife_tpu_torch.env import wrappers as W
     from safelife_tpu_torch.training import dqn as D
 
@@ -2249,9 +2312,12 @@ def dqn_setup(dev, pool, lanes, env_cfg, wcfg, seed, **cuts):
     run = dict(pool=pool, env=env_cfg, wcfg=wcfg, cfg=cfg, dev=dev,
                gen=torch.Generator(device=dev).manual_seed(seed),
                n_steps=max(cfg.optimize_interval // lanes, 1))
-    run["ds"] = D.init_dqn_state(cfg, q_network(dev, seed),
-                                 lanes * pool.num_agents, VIEW, torch.int32,
-                                 device=dev)
+    channels = env_cfg.output_channels
+    obs = ((VIEW, torch.int32) if channels is None
+           else (VIEW + (len(channels),), torch.uint8))
+    run["ds"] = D.init_dqn_state(
+        cfg, q_network(dev, seed, channels is not None),
+        lanes * pool.num_agents, *obs, device=dev)
     run["ws"], run["obs"] = W.reset(env_cfg, wcfg, pool, lanes, device=dev)
     return run
 
@@ -2834,6 +2900,527 @@ def run_front_end_phase(dev, prune_spawn, card):
 
 #: Kernel form -> (source, the TPU kernel it replaces, its kernel's name in
 #: the profiler).
+# ---------------------------------------------------------------------------
+# Phase 10: the learner's precision modes, uint8 channel observations,
+# device-batched level generation and the oracle step
+
+
+PRECISION_MODES = ("float32", "tensorfloat32", "bfloat16")
+#: Timed train_iterations of each mode and width, after one warm-up.
+MODE_ITERS = 2
+#: Each mode's bounds on the first minibatch against strict float32 (loss
+#: relative, gradients over their norm): on the card against the card's
+#: float32 on the same batch and parameters, and card against CPU (where
+#: TF32 does not exist, so "tensorfloat32" there is float32). TF32 rounds
+#: the products' inputs to a 10-bit mantissa (unit roundoff 2^-11, 4.9e-4)
+#: and accumulates in float32: over 55 batches its gradients lay 1.8e-4 of
+#: their norm or more from strict float32 (``chip_sweep.py learner``). bfloat16
+#: also rounds every layer's output to an 8-bit mantissa (2^-9, 2e-3):
+#: on the CPU its gradients lay up to 0.095 of their norm from JAX's
+#: float32 (``tests/test_torch_precision.py``). float32 keeps phase 5's.
+MODE_BOUNDS = {"float32": (LEARNER_LOSS_REL, LEARNER_GRAD_NORM),
+               "tensorfloat32": (1e-3, 1e-2),
+               "bfloat16": (1e-2, 0.25)}
+CHANNEL_STEPS = 200
+PROCGEN_TASK = "random/append-still"
+#: ``gen_games_batched``'s device batches timed here; 64 is the CLI run's
+#: (its start-up pool and refills).
+PROCGEN_BATCHES = (8, 256)
+HOST_LEVELS = 32
+ORACLE_STEPS = 100
+
+
+def precision_path(dev, levels, tree, lanes, precision, card):
+    """Phase 5's training iteration in ``precision`` at ``lanes`` lanes:
+    a warm-up, MODE_ITERS timed iterations with the launch counts zeroed
+    just before and read just after (K1, K2 and K3 20 times an iteration
+    each), a rollout and an update timed apart, and a profile of the
+    update. Returns the times, the rollout's batch and the parameters
+    that collected it."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.training import ppo as P
+
+    run = training_setup(dev, levels, tree, lanes, seed=10,
+                         precision=precision)
+    train_iteration(run)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    iter_ms = [event_ms(lambda: train_iteration(run))[0]
+               for _ in range(MODE_ITERS)]
+    launches = ops.launch_counts()
+    n = run["pcfg"].steps_per_env * MODE_ITERS
+    check_launches("%s training at %d lanes" % (precision, lanes), launches,
+                   {k: n for k in ("fused_actions_advance", "advance",
+                                   "recenter_views")})
+    state = model_state(run)
+    rollout_ms, batch = event_ms(lambda: rollout_batch(run))
+    update_ms, _ = event_ms(lambda: P.train_on_batch(
+        run["pcfg"], run["ps"], batch, run["gen"]))
+    if not all(bool(torch.isfinite(p).all())
+               for p in run["ps"].model.parameters()):
+        raise AssertionError("%s: non-finite parameters" % precision)
+    samples = run["pcfg"].epochs_per_batch * batch["obs"].shape[0]
+    mean = sum(iter_ms) / len(iter_ms)
+    log("precision %s at %d lanes: train_iteration %s ms (mean %.3f), "
+        "rollout %.3f ms, update %.3f ms; %.0f training env-steps/s, %.0f "
+        "learner samples/s; launches %s  [%s]"
+        % (precision, lanes, ", ".join("%.3f" % m for m in iter_ms), mean,
+           rollout_ms, update_ms,
+           run["pcfg"].steps_per_env * lanes / mean * 1e3,
+           samples / update_ms * 1e3, json.dumps(launches), card))
+    profile_window(lambda: P.train_on_batch(run["pcfg"], run["ps"], batch,
+                                            run["gen"]),
+                   "the %s update at %d lanes" % (precision, lanes),
+                   "update", 1, top=8)
+    return dict(iteration=mean, rollout=rollout_ms, update=update_ms,
+                samples_per_s=samples / update_ms * 1e3,
+                launches=launches), batch, state
+
+
+def mode_deviation(dev, tree, state, batch, precision):
+    """The first minibatch's loss and gradients in ``precision`` on the
+    card against strict float32 on the card, from the same parameters
+    and batch; with the layer probe, every layer run must see TF32
+    allowed under "tensorfloat32" and none otherwise, and under
+    "bfloat16" every layer must compute in bfloat16."""
+    from safelife_tpu_torch.training import ppo as P
+
+    cfg = P.PPOConfig()
+    _, first = first_indices(cfg, batch["obs"].shape[0], 12)
+    out = {}
+    for mode in ("float32", precision):
+        net = policy(tree, dev, mode)
+        net.load_state_dict(state)
+        dtypes = []
+        hooks = [m.register_forward_hook(
+            lambda m, i, o: dtypes.append(o.dtype))
+            for m in net.modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+        with tf32_probe(net) as tf32:
+            out[mode] = first_minibatch(cfg, net, batch, first)
+        for h in hooks:
+            h.remove()
+        want = mode == "tensorfloat32"
+        if not tf32 or any(x != want for x in tf32):
+            raise AssertionError("%s: TF32 allowed in %d of %d layer runs"
+                                 % (mode, sum(tf32), len(tf32)))
+        want = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        if any(t != want for t in dtypes):
+            raise AssertionError("%s: layer outputs %s" % (mode, dtypes))
+    return grad_diffs(*out[precision], *out["float32"])
+
+
+def check_mode_bounds(what, r, precision):
+    loss_rel, grad_norm = MODE_BOUNDS[precision]
+    if r["loss"] > loss_rel or r["grad_norm"] > grad_norm:
+        raise AssertionError("%s: loss rel %.3e (bound %.0e), gradients "
+                             "%.3e of their norm (bound %.0e)"
+                             % (what, r["loss"], loss_rel, r["grad_norm"],
+                                grad_norm))
+
+
+def run_precision_modes(dev, levels, tree, card):
+    """Each learner precision at both widths of phase 5, its deviation
+    from strict float32 on the card, and, at 64 lanes, the card against
+    the CPU in each new mode (phase 5 holds float32 at both widths)."""
+    times = {}
+    for lanes in TRAIN_LANES:
+        batches = {}
+        for precision in PRECISION_MODES:
+            times[precision, lanes], batch, state = precision_path(
+                dev, levels, tree, lanes, precision, card)
+            batches[precision] = (batch, state)
+        batch, state = batches["float32"]
+        for precision in PRECISION_MODES[1:]:
+            r = mode_deviation(dev, tree, state, batch, precision)
+            log("precision %s against strict float32 on the card (%d "
+                "lanes, the first minibatch of a float32 rollout): loss rel "
+                "%.3e, gradients |dg| / |g| %.3e (per tensor: norm %.3e, "
+                "max element / max |g| %.3e); bounds %s  [%s]"
+                % (precision, lanes, r["loss"], r["grad_norm"],
+                   r["grad_tensor_norm"], r["grad_tensor_max"],
+                   MODE_BOUNDS[precision], card))
+            check_mode_bounds("%s on the card at %d lanes" % (precision,
+                                                             lanes),
+                              r, precision)
+            times[precision, lanes]["vs_float32"] = r
+            if lanes == 64:
+                batch_p, state_p = batches[precision]
+                r = learner_diffs(dev, tree, state_p, batch_p,
+                                  precision=precision)
+                log("precision %s, learner on the card vs the CPU (%d "
+                    "samples): %s  [%s]" % (precision,
+                                            batch_p["obs"].shape[0],
+                                            learner_line(r), card))
+                check_mode_bounds("%s card vs CPU" % precision, r, precision)
+                times[precision, lanes]["vs_cpu"] = r
+    return times
+
+
+def check_channels_against_cpu(dev, levels, card, lanes=64,
+                               steps=CHANNEL_STEPS):
+    """``packed_obs: false`` on the card against the CPU path: prune-
+    dynamic (no spawners, goals that evolve) for ``steps`` steps of numpy
+    actions at ``lanes`` lanes, the uint8 channels [B, 1, 25, 25, 15] and
+    the boards equal every step; K1, K2 and K3 launched once a step (K3
+    once more for the reset)."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=TRAINING_CHANNELS,
+                      auto_reset=False)
+    acts = np.random.default_rng(13).integers(
+        0, 9, (steps, lanes, 1)).astype(np.int32)
+    runs, launched = [], None
+    for d in (dev, torch.device("cpu")):
+        pool = pack_levels(levels[:lanes], device=d)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        state, obs = E.reset(cfg, pool, lanes)
+        gen = torch.Generator(device=d).manual_seed(0)
+        out = [(obs.cpu(), state.board.cpu())]
+        for t in range(steps):
+            state, obs, _, _, _ = E.step(cfg, pool, state,
+                                         torch.from_numpy(acts[t]).to(d),
+                                         gen)
+            out.append((obs.cpu(), state.board.cpu()))
+        runs.append(out)
+        if launched is None:
+            launched = ops.launch_counts()
+    if not pool.spawner_free or pool.all_goals_static:
+        raise AssertionError("prune-dynamic: spawners or static goals")
+    check_launches("packed_obs false on the card", launched, {
+        "fused_actions_advance": steps, "advance": steps,
+        "recenter_views": steps + 1})
+    for t, ((co, cb), (ho, hb)) in enumerate(zip(*runs)):
+        if co.dtype != torch.uint8 or tuple(co.shape) != \
+                (lanes, 1) + VIEW + (len(TRAINING_CHANNELS),):
+            raise AssertionError("channels %s %s" % (co.dtype,
+                                                     tuple(co.shape)))
+        if not (torch.equal(co, ho) and torch.equal(cb, hb)):
+            raise AssertionError("channels or boards differ card vs CPU at "
+                                 "step %d" % t)
+    log("packed_obs false on the card equals the CPU path (prune-dynamic, "
+        "%d lanes x %d steps): uint8 channels [%d, 1, 25, 25, %d] and boards "
+        "exact every step; launches %s  [%s]"
+        % (lanes, steps, lanes, len(TRAINING_CHANNELS), json.dumps(launched),
+           card))
+    return launched
+
+
+def channels_iteration(dev, levels, tree, card, lanes=4096):
+    """One PPO iteration at ``lanes`` lanes with uint8 channels beside the
+    packed mode, in turns (packed, channels, channels, packed) after a
+    warm-up each, launches read around the channels' iterations; the
+    trajectory's bytes of each; the same loss from the two modes on the
+    same samples."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.models.nets import (
+        TRAINING_CHANNELS, learner_precision, unpack_obs)
+    from safelife_tpu_torch.training import ppo as P
+
+    runs = {mode: training_setup(dev, levels, tree, lanes, seed=10,
+                                 channels=mode == "channels")
+            for mode in ("packed", "channels")}
+    ms = {"packed": [], "channels": []}
+    for mode in runs:
+        train_iteration(runs[mode])
+    launches = {}
+    for mode in ("packed", "channels", "channels", "packed"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms[mode].append(event_ms(lambda: train_iteration(runs[mode]))[0])
+        launches[mode] = ops.launch_counts()
+    steps = runs["packed"]["pcfg"].steps_per_env
+    for mode, n in launches.items():
+        check_launches("%s iteration at %d lanes" % (mode, lanes), n,
+                       {k: steps for k in ("fused_actions_advance",
+                                           "advance", "recenter_views")})
+    traj_bytes = {}
+    batches = {}
+    for mode, run in runs.items():
+        batch = rollout_batch(run)
+        traj_bytes[mode] = batch["obs"].numel() * batch["obs"].element_size()
+        batches[mode] = batch
+    # The same samples in both forms: the packed rollout's, unpacked.
+    cfg = P.PPOConfig()
+    b = {k: v[:lanes] for k, v in batches["packed"].items()}
+    chans = unpack_obs(b["obs"], TRAINING_CHANNELS).to(torch.uint8)
+    state = model_state(runs["packed"])
+    losses = {}
+    for mode, obs in (("packed", b["obs"]), ("channels", chans)):
+        net = policy(tree, dev, channels=mode == "channels")
+        net.load_state_dict(state)
+        with torch.no_grad(), learner_precision(net.precision, "cuda"):
+            losses[mode], _ = P.calculate_loss(
+                cfg, net, obs, b["actions"], b["action_prob"], b["values"],
+                b["returns"], b["advantages"], b["weight"])
+    if not torch.equal(losses["packed"], losses["channels"]):
+        raise AssertionError("packed and channels losses differ: %r vs %r"
+                             % (float(losses["packed"]),
+                                float(losses["channels"])))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log("packed_obs false at %d lanes: train_iteration %.3f ms (packed "
+        "%.3f ms, in turns); trajectory observations %d bytes (packed "
+        "%d); the loss of %d samples in both forms %.9g, equal; launches %s"
+        "  [%s]" % (lanes, mean["channels"], mean["packed"],
+                    traj_bytes["channels"], traj_bytes["packed"], lanes,
+                    float(losses["packed"]), json.dumps(launches["channels"]),
+                    card))
+    return dict(ms=mean, traj_bytes=traj_bytes,
+                launches=launches["channels"])
+
+
+def channels_dqn_chunk(dev, levels, card, lanes=4096):
+    """One DQN chunk of DQN_UNITS units at ``lanes`` lanes with uint8
+    channels beside the packed mode (each after a warm-up chunk, timed
+    in turns), the full 100,000-entry replay, launches equal to
+    ``predicted_launches``; the replay's bytes of each mode."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+    from safelife_tpu_torch.training import dqn as D
+
+    pool = pack_levels(levels, device=dev)
+    runs = {}
+    for mode, out in (("packed", None), ("channels", TRAINING_CHANNELS)):
+        runs[mode] = dqn_setup(
+            dev, pool, lanes, E.EnvConfig(view_shape=VIEW,
+                                          output_channels=out),
+            W.WrapperConfig(se_baseline="inaction"), 20, **dqn_cuts(lanes))
+
+    def chunk(run):
+        run["ds"], run["ws"], run["obs"], m = D.train_chunk(
+            run["env"], run["wcfg"], run["cfg"], run["pool"], run["ds"],
+            run["ws"], run["obs"], run["gen"], run["n_steps"], DQN_UNITS,
+            device=dev)
+        return m
+
+    for run in runs.values():
+        chunk(run)
+    ms = {"packed": [], "channels": []}
+    for mode in ("packed", "channels", "channels", "packed"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with trainer_parts() as calls:
+            t0 = time.perf_counter()
+            m = chunk(runs[mode])
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+        check_trainer_launches("%s DQN chunk at %d lanes" % (mode, lanes),
+                               ops.launch_counts(), calls)
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError("%s DQN: non-finite loss" % mode)
+    replay = {mode: sum(getattr(run["ds"].replay, k).numel()
+                        * getattr(run["ds"].replay, k).element_size()
+                        for k in ("obs", "next_obs"))
+              for mode, run in runs.items()}
+    if runs["channels"]["ds"].replay.obs.dtype != torch.uint8:
+        raise AssertionError("the channels replay is not uint8")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    steps = DQN_UNITS * runs["packed"]["n_steps"] * lanes
+    log("packed_obs false, DQN chunk of %d units at %d lanes (%d env "
+        "steps): %.3f ms (packed %.3f ms, in turns), %.0f training "
+        "env-steps/s (packed %.0f); replay obs + next_obs %d bytes (packed "
+        "%d), %d entries  [%s]"
+        % (DQN_UNITS, lanes, steps, mean["channels"], mean["packed"],
+           steps / mean["channels"] * 1e3, steps / mean["packed"] * 1e3,
+           replay["channels"], replay["packed"],
+           runs["channels"]["ds"].replay.capacity, card))
+    return dict(ms=mean, replay_bytes=replay, steps=steps)
+
+
+def check_still_levels(levels, what):
+    """Each append-still level with its agent, one exit, and the still-life
+    invariant: without its agent the board is a fixed point of the CA."""
+    from safelife_tpu_torch.core import cells as C
+    from safelife_tpu_torch.core.advance_np import advance_board_np
+
+    for lv in levels:
+        board = np.asarray(lv.board, np.int64)
+        board = board * ((board & C.AGENT) == 0)
+        if len(lv.agent_locs) != 1 or ((board & C.EXIT) > 0).sum() != 1 \
+                or not (advance_board_np(board) == board).all():
+            raise AssertionError("%s: level %s breaks the still-life "
+                                 "invariant" % (what, lv.name))
+
+
+def device_procgen_rates(dev, card):
+    """Levels/s of ``gen_games_batched`` for PROCGEN_TASK at each of
+    PROCGEN_BATCHES on the card, the annealing iterations counted, beside
+    one host worker and the 4-worker pool; every level checked."""
+    from safelife_tpu_torch.io.iterator import (SafeLifeLevelIterator,
+                                                load_files)
+    from safelife_tpu_torch.procgen import anneal_device as AD
+    from safelife_tpu_torch.procgen import batched as B
+
+    params = load_files([PROCGEN_TASK])[0][2]
+    out = {}
+    for n in PROCGEN_BATCHES:
+        its = []
+        seeds = np.random.SeedSequence(40 + n).spawn(n)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        with wrapped(AD._Chains, "run",
+                     after=lambda args, _: its.append(int(args[0].it))):
+            t0 = time.perf_counter()
+            levels = B.gen_games_batched(
+                [params] * n, [np.random.default_rng(s) for s in seeds], gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        check_still_levels(levels, "device batch %d" % n)
+        out[n] = n / dt
+        log("device procgen %s, batch %d: %.3f s, %.4f levels/s; %d annealer "
+            "runs, %d lockstep iterations (%.4f ms each), the longest run "
+            "%d; every level an append-still level (agent, exit, a still "
+            "board)  [%s]" % (PROCGEN_TASK, n, dt, n / dt, len(its), sum(its),
+                              dt / max(sum(its), 1) * 1e3, max(its), card))
+    for workers in (0, 4):
+        it = SafeLifeLevelIterator(PROCGEN_TASK,
+                                   seed=np.random.SeedSequence(41),
+                                   num_workers=workers)
+        t0 = time.perf_counter()
+        levels = [next(it) for _ in range(HOST_LEVELS)]
+        dt = time.perf_counter() - t0
+        it.close()
+        check_still_levels(levels, "host, %d workers" % workers)
+        out["host%d" % workers] = HOST_LEVELS / dt
+        log("host procgen %s, %s: %d levels %.3f s, %.4f levels/s  [%s]"
+            % (PROCGEN_TASK, "%d forked workers (their start included)"
+               % workers if workers else "one process", HOST_LEVELS, dt,
+               HOST_LEVELS / dt, card))
+    return out
+
+
+def run_mode_cli(dev, card, name, extra):
+    """The CLI at CLI_LANES lanes with ``-x extra``: train CLI_STEPS steps
+    into ``runs/chip-smoke-<name>-<pid>`` with the final benchmark; the
+    run must log, checkpoint and benchmark, its launches equal to
+    ``predicted_launches``. Returns (the run, its calls, launches, wall
+    seconds)."""
+    import os
+
+    from safelife_tpu_torch.training.checkpoints import CheckpointManager
+
+    data_dir = os.path.join("runs", "chip-smoke-%s-%d" % (name, os.getpid()))
+    argv = ["train", data_dir, "-e", TRAINER_TASK, "--batch", str(CLI_LANES),
+            "--steps", str(CLI_STEPS), "--seed", "1",
+            "--benchmark-episodes", str(CLI_EPISODES), "-x",
+            json.dumps(extra)]
+    what = "CLI train -x '%s' at %d lanes" % (json.dumps(extra), CLI_LANES)
+    out, calls, launches, wall = cli_run(dev, argv, what, card)
+    if out.state.num_steps < CLI_STEPS or not all(
+            bool(torch.isfinite(p).all()) for p in out.model.parameters()):
+        raise AssertionError("%s: %d steps" % (what, out.state.num_steps))
+    ckpt = CheckpointManager(data_dir)
+    if ckpt.latest_step() != out.state.num_steps:
+        raise AssertionError("%s: checkpoints %s" % (what, ckpt.steps()))
+    check_run_dir(data_dir, out, CLI_EPISODES)
+    t_train = part_seconds(calls, "train_ppo")
+    t_bench = part_seconds(calls, "benchmark")
+    log("%s: %d steps; the whole command %.3f s = set-up "
+        "(build_environments) %.3f s + train_ppo %.3f s + final benchmark "
+        "%.3f s; %.0f training env-steps/s over train_ppo; summary %s  [%s]"
+        % (what, out.state.num_steps, wall, wall - t_train - t_bench,
+           t_train, t_bench, out.state.num_steps / t_train,
+           json.dumps(out.summary), card))
+    return out, calls, launches, wall
+
+
+def run_cli_modes(dev, card):
+    """The CLI in bfloat16 on uint8 channels, and with device procgen at
+    64 (its start-up pool of 128 levels and its refills from the device
+    annealer, timed call by call)."""
+    from safelife_tpu_torch.procgen import batched as B
+
+    out, _, launches, wall = run_mode_cli(
+        dev, card, "bf16-channels",
+        {"train.precision": "bfloat16", "env.packed_obs": False})
+    if out.model.precision != "bfloat16" or out.bundle.packed_obs \
+            or out.model.unpack_channels is not None:
+        raise AssertionError("the bfloat16 channels run built %s"
+                             % type(out.model).__name__)
+    bf16 = dict(launches=launches, wall=wall)
+
+    with timed_calls(B, ["gen_games_batched"]) as rec:
+        out, calls, launches, wall = run_mode_cli(
+            dev, card, "device-procgen", {"env.device_procgen": 64})
+    it = out.bundle.pool_manager.iterator
+    rounds = [len(r) for r in rec.get("gen_games_batched:results", [])]
+    if it.device_batch != 64 or it.device.type != "cuda" or not rounds \
+            or set(rounds) != {64}:
+        raise AssertionError("device procgen rounds %s on %s" % (rounds,
+                                                                 it.device))
+    t_rounds = rec["gen_games_batched"]
+    startup = wall - part_seconds(calls, "train_ppo") \
+        - part_seconds(calls, "benchmark")
+    check_still_levels(out.bundle.pool_manager._host_levels,
+                       "the device-procgen pool")
+    log("CLI device procgen 64: start-up (build_environments, a pool of %d "
+        "levels) %.3f s; %d device rounds of 64 levels, %s s each, %.4f "
+        "levels/s over them; the pool's levels are append-still levels  [%s]"
+        % (out.bundle.pool_manager.pool.num_levels, startup, len(rounds),
+           ", ".join("%.3f" % t for t in t_rounds),
+           64 * len(t_rounds) / sum(t_rounds), card))
+    return dict(bf16=bf16, procgen=dict(
+        launches=launches, wall=wall, startup=startup,
+        rate64=64 * len(t_rounds) / sum(t_rounds)))
+
+
+def check_oracle(dev, card, steps=ORACLE_STEPS):
+    """``advance_board_oracle`` on a 26x26 board with spawners for
+    ``steps`` steps on the card and on the CPU from equal NumPy generator
+    states: boards equal every step and the generators' states equal
+    after; the card's time a step (host clock, synchronized)."""
+    from safelife_tpu_torch.core import advance as A
+    from safelife_tpu_torch.core import cells as C
+
+    rng = np.random.default_rng(17)
+    board = rng.choice([C.EMPTY, C.LIFE, C.ALIVE, C.WALL, C.TREE, C.SPAWNER],
+                       size=(26, 26), p=[0.55, 0.15, 0.1, 0.08, 0.07, 0.05])
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        b = torch.from_numpy(board.astype(np.int32)).to(d)
+        A.advance_board_oracle(b, np.random.default_rng(0), 0.3)  # warm-up
+        gen = np.random.default_rng(18)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            b = A.advance_board_oracle(b, gen, 0.3)
+            out.append(b)
+        torch.cuda.synchronize()
+        sides.append(([x.cpu() for x in out], gen.bit_generator.state,
+                      (time.perf_counter() - t0) / steps * 1e6))
+    (cb, cs, cus), (hb, hs, hus) = sides
+    if cs != hs or not all(torch.equal(x, y) for x, y in zip(cb, hb)):
+        raise AssertionError("the oracle step differs card vs CPU")
+    spawned = int(((cb[-1] & C.ALIVE) > 0).sum())
+    log("oracle step (26x26, spawners, spawn_prob 0.3, %d steps) on the "
+        "card equals the CPU path, boards every step and the PCG64 state "
+        "after; %.1f us a step on the card, %.1f on the CPU; %d alive cells "
+        "at the end  [%s]" % (steps, cus, hus, spawned, card))
+    return cus
+
+
+def run_phase_10(dev, spawn, prune, tree, card):
+    """Phase 10: the precision modes, uint8 channels, device procgen, the
+    CLI in those modes and the oracle step."""
+    fresh_cli_state()
+    t0 = time.perf_counter()
+    out = {"precision": run_precision_modes(dev, spawn, tree, card)}
+    out["channels_launches"] = check_channels_against_cpu(dev, prune, card)
+    out["channels_ppo"] = channels_iteration(dev, spawn, tree, card)
+    out["channels_dqn"] = channels_dqn_chunk(dev, spawn, card)
+    out["oracle_us"] = check_oracle(dev, card)
+    out["procgen"] = device_procgen_rates(dev, card)
+    out["cli"] = run_cli_modes(dev, card)
+    log("phase 10: %.1f s" % (time.perf_counter() - t0))
+    return out
+
+
 KERNELS = {
     "fused_actions_advance": ("safelife_tpu_torch/ops/csrc/physics.cu",
                               "safelife_tpu/ops/physics.py:296",
@@ -2973,6 +3560,11 @@ def main():
         % (rollout_rate(dev, pool, net, 4096), card))
     profile_rollout(dev, pool, net, LANES)
     profile_rollout(dev, pool, net, 4096)
+
+    # Phase 10, after the kernels' timing: timed after it, the kernels
+    # fell back to CUDA events, the profiler having kept too few of their
+    # launches (the device annealer captures CUDA graphs in phase 10).
+    modes = run_phase_10(dev, spawn, prune, tree, card)
     log("main path per step: %s" % json.dumps(
         {k: v / (2 * STEPS) for k, v in launches.items()}))
     log("trainer (phase 7): start-up pool %s s at %s lanes; CLI run at %d "
@@ -3003,6 +3595,33 @@ def main():
         "render %.0f frames/s on the card, %.0f on the host  [%s]"
         % (front["play"]["seconds"], front["play"]["launches"]["advance"],
            front["render"]["card_fps"], front["render"]["host_fps"], card))
+    for (precision, lanes), t in modes["precision"].items():
+        dev_lines = "".join(
+            "; %s loss rel %.3e, gradients %.3e of their norm"
+            % (label, t[key]["loss"], t[key]["grad_norm"])
+            for key, label in (("vs_float32", "against strict float32"),
+                               ("vs_cpu", "card vs CPU")) if key in t)
+        log("precision (phase 10) %s at %d lanes: train_iteration %.3f ms, "
+            "rollout %.3f ms, update %.3f ms, %.0f learner samples/s%s  [%s]"
+            % (precision, lanes, t["iteration"], t["rollout"], t["update"],
+               t["samples_per_s"], dev_lines, card))
+    ch, dq = modes["channels_ppo"], modes["channels_dqn"]
+    log("packed_obs false (phase 10) at 4096 lanes: PPO iteration %.3f ms "
+        "(packed %.3f), trajectory observations %d bytes (packed %d); DQN "
+        "chunk %.3f ms (packed %.3f), replay observations %d bytes (packed "
+        "%d)  [%s]" % (ch["ms"]["channels"], ch["ms"]["packed"],
+                       ch["traj_bytes"]["channels"],
+                       ch["traj_bytes"]["packed"], dq["ms"]["channels"],
+                       dq["ms"]["packed"], dq["replay_bytes"]["channels"],
+                       dq["replay_bytes"]["packed"], card))
+    pg, cli10 = modes["procgen"], modes["cli"]
+    log("device procgen (phase 10) levels/s: %s on the card, %.4f at batch "
+        "64 in the CLI run; host %.4f (one process), %.4f (4 workers); CLI "
+        "start-up with device_procgen 64 %.3f s; oracle step %.1f us  [%s]"
+        % (", ".join("%.4f at batch %d" % (pg[n], n)
+                     for n in PROCGEN_BATCHES), cli10["procgen"]["rate64"],
+           pg["host0"], pg["host4"], cli10["procgen"]["startup"],
+           modes["oracle_us"], card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []

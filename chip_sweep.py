@@ -2,9 +2,10 @@
 call, on one CUDA card.
 
     python3 chip_sweep.py [physics] [views] [host] [learner] [learner-4096]
+                          [procgen]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all five parts). It imports torch and the port only, prints
+argument runs all six parts). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -32,6 +33,11 @@ prune-dynamic boards:
   differences that the check bounds. ``learner-4096``: the same over 6
   batches of a 4096-lane run (minibatches of 16,384 samples, where cuDNN
   takes other convolution engines).
+* ``procgen``: the device annealer's lockstep iteration
+  (``procgen/anneal_device.py``) at 8, 64 and 256 chains on 26x26 boards
+  whose chains never converge: milliseconds an iteration run eagerly and
+  replayed as the CUDA graph ``_Chains.run`` captures, and the capture's
+  seconds.
 """
 
 import contextlib
@@ -209,34 +215,6 @@ def host_cost(dev, pool, n=2000):
     return out
 
 
-@contextlib.contextmanager
-def tf32_learner():
-    """The learner with TF32 allowed everywhere: ``strict_float32`` (of
-    the network and of ``training/ppo.py``) swapped for a context that
-    turns TF32 on."""
-    from safelife_tpu_torch.models import nets
-    from safelife_tpu_torch.training import ppo
-
-    @contextlib.contextmanager
-    def allow_tf32():
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            yield
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = prev
-
-    strict = nets.strict_float32
-    nets.strict_float32 = ppo.strict_float32 = allow_tf32
-    try:
-        yield
-    finally:
-        nets.strict_float32 = ppo.strict_float32 = strict
-
-
 def learner_spread(dev, card, lanes, n_batches):
     """``cs.learner_diffs`` on successive batches of one training run of
     ``lanes`` lanes, from the parameters that collected each batch, strict
@@ -253,13 +231,71 @@ def learner_spread(dev, card, lanes, n_batches):
     for i in range(n_batches):
         state = cs.model_state(run)
         batch = cs.rollout_batch(run)
-        for mode, ctx in (("strict float32", contextlib.nullcontext),
-                          ("TF32", tf32_learner)):
-            with ctx():
-                r = cs.learner_diffs(dev, tree, state, batch, seed=12 + i)
+        for mode, precision in (("strict float32", "float32"),
+                                ("TF32", "tensorfloat32")):
+            r = cs.learner_diffs(dev, tree, state, batch, seed=12 + i,
+                                 precision=precision)
             print("learner at %d lanes, batch %d, %s: %s  [%s]"
                   % (lanes, i, mode, cs.learner_line(r), card), flush=True)
         ppo.train_on_batch(run["pcfg"], run["ps"], batch, run["gen"])
+
+
+def anneal_iteration_cost(dev, card, blocks=10):
+    """The device annealer's iteration at 8, 64 and 256 chains: a 16x16
+    writable square in a 26x26 board and a fill floor of 2, so that no
+    chain converges; one block of iterations eagerly as a warm-up, 3
+    more timed, then the block captured as a CUDA graph and ``blocks``
+    replays timed, each block's uniforms drawn first, as
+    ``_Chains.run`` does."""
+    import numpy as np
+
+    from safelife_tpu_torch.procgen import anneal_device as AD
+
+    mask = np.zeros((26, 26), np.int32)
+    mask[3:19, 3:19] = AD.NEW_CELL_MASK | AD.INCLUDE_VIOLATIONS_MASK
+    mask[2:20, 2:20] |= AD.INCLUDE_VIOLATIONS_MASK
+    for n in (8, 64, 256):
+        m = torch.from_numpy(np.tile(mask, (n, 1, 1))).to(dev)
+        full = lambda v: torch.full((n,), v, device=dev)  # noqa: E731
+        pens = torch.tensor([0, 0, 100, 100, 0, 0, 100, 100.],
+                            device=dev).repeat(n, 1)
+        c = AD._Chains(torch.zeros((n, 26, 26), dtype=torch.int32,
+                                   device=dev), m, (m & 1) > 0, full(0.5),
+                       full(0.0), pens, 1)
+        c.start(full(2.0), full(1000.0))
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def draw():
+            c.site_u.uniform_(generator=gen)
+            c.move_u.uniform_(generator=gen)
+
+        draw()
+        AD._anneal_block(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            draw()
+            AD._anneal_block(c)
+        torch.cuda.synchronize()
+        eager = (time.perf_counter() - t0) / (3 * AD.CHECK_EVERY) * 1e3
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            AD._anneal_block(c)
+        torch.cuda.synchronize()
+        capture = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            draw()
+            graph.replay()
+        torch.cuda.synchronize()
+        replayed = (time.perf_counter() - t0) / (blocks * AD.CHECK_EVERY)
+        if not bool(c.active().all()):
+            raise AssertionError("a chain stopped")
+        print("annealer iteration, %d chains on 26x26: eager %.4f ms, "
+              "graph %.4f ms (capture %.3f s), %d iterations run  [%s]"
+              % (n, eager, replayed * 1e3, capture, int(c.it), card),
+              flush=True)
 
 
 def main():
@@ -267,7 +303,7 @@ def main():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
     parts = sys.argv[1:] or ["physics", "views", "host", "learner",
-                             "learner-4096"]
+                             "learner-4096", "procgen"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -291,6 +327,8 @@ def main():
         learner_spread(dev, card, 64, 48)
     if "learner-4096" in parts:
         learner_spread(dev, card, 4096, 6)
+    if "procgen" in parts:
+        anneal_iteration_cost(dev, card)
     return 0
 
 

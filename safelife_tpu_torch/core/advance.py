@@ -3,12 +3,13 @@
 Port of ``safelife_tpu/core/advance.py:53-240`` (``pack_counters``,
 ``stats_from_aggregates``, ``neighborhood_stats``, ``apply_rule``,
 ``advance_board_given_spawns``, ``spawn_eligible``, fast ``advance_board``,
-``advance_board_deterministic`` and ``advance_board_nstep``) and
-``:267-290`` (``life_occupancy``). Up to ``advance_board`` this is the
-plain CA: the plain version of the K2 kernel's body (``ops/csrc/ca.cuh``)
-and what the CPU path runs. ``advance_board_nstep`` and ``life_occupancy``
-take one K2 launch (``ops.advance``) a step, under seed words drawn once
-by the caller.
+``advance_board_deterministic`` and ``advance_board_nstep``),
+``:243-264`` (``advance_board_oracle``, on the reference's own NumPy
+generator: :mod:`.pcg64`) and ``:267-290`` (``life_occupancy``). Up to
+``advance_board`` this is the plain CA: the plain version of the K2
+kernel's body (``ops/csrc/ca.cuh``) and what the CPU path runs.
+``advance_board_nstep`` and ``life_occupancy`` take one K2 launch
+(``ops.advance``) a step, under seed words drawn once by the caller.
 
 The rule (reference ``advance_board.c:94-124``) in terms of the toroidal
 3x3 neighbourhood, self included: ``count`` alive cells; the OR of the
@@ -114,11 +115,12 @@ def advance_board_deterministic(board):
                            device=board.device))
 
 
-def spawn_eligible(board):
+def spawn_eligible(board, stats=None):
     """Cells for which the reference kernel consumes one random draw: dead,
     not frozen, no inhibiting neighbour, count != 3, a spawning neighbour
-    (``advance_board.c:96-124``)."""
-    count, flags, _, _ = neighborhood_stats(board)
+    (``advance_board.c:96-124``). ``stats`` are the board's
+    :func:`neighborhood_stats`, computed here when not given."""
+    count, flags, _, _ = stats or neighborhood_stats(board)
     alive = (board & C.ALIVE) != 0
     frozen = (board & C.FROZEN) != 0
     inhibited = (flags & C.INHIBITING) != 0
@@ -167,6 +169,24 @@ def advance_board_nstep(board, spawn_prob, seeds, stochastic=True):
     for seed in seeds:
         flat = ops.advance(flat, sp, seed, h=h, w=w, stochastic=stochastic)
     return flat.reshape(board.shape)
+
+
+def advance_board_oracle(board, rng, spawn_prob):
+    """One physics step in oracle mode: the spawn draws come from the
+    NumPy generator ``rng`` (PCG64) in raster order, so the step equals
+    the reference C kernel's under the same generator state, and leaves
+    ``rng`` where the C kernel leaves it.
+
+    board int32 [H, W], a single board (the oracle is sequential, as in
+    the JAX package) on any device; spawn_prob a float. Returns the new
+    board; one host sync (the eligible count).
+    """
+    from .pcg64 import raster_spawn_draws
+
+    stats = neighborhood_stats(board)
+    spawns = raster_spawn_draws(spawn_eligible(board, stats), rng,
+                                spawn_prob)
+    return apply_rule(board, stats, spawns)
 
 
 #: ``cell & _FREE_LIFE_KEY`` is ``ALIVE | color << COLOR_BIT`` exactly when

@@ -3,8 +3,8 @@
 Port of ``safelife_tpu/io/iterator.py`` for one process:
 ``_load_param_file`` (``:28-49``), ``load_files`` (``:52-66``),
 ``_level_from_data`` (``:69-82``), ``_init_worker`` (``:85-97``),
-``SafeLifeLevelIterator`` (``:100-298``) without its ``device_batch``
-path (``:166-222``: a nonzero ``device_batch`` raises), and
+``SafeLifeLevelIterator`` (``:100-298``, with its ``device_batch`` path
+``_fill_queue_batched``, ``:166-222``), and
 ``LevelPoolManager`` (``__init__`` ``:310-331``, ``close``,
 ``restore_pool`` ``:370-460``, ``level_meta`` ``:504-538``, ``refresh``
 ``:540-705``, ``_level_compatible`` ``:707-729``) with ``_swap_rows``
@@ -16,7 +16,10 @@ Levels are generated on the host with NumPy, SciPy and the native
 annealer, in forked worker processes when ``num_workers`` > 0. A worker
 never touches torch: the parent may hold a CUDA context when it forks.
 Each level draws from its own ``SeedSequence.spawn``, so equal seeds give
-the JAX package's levels byte for byte, with or without workers.
+the JAX package's levels byte for byte, with or without workers. With
+``device_batch`` N the iterator instead generates N levels at a time with
+the device annealer (:mod:`..procgen.batched`) on its ``device``, without
+workers; those levels match the JAX package's in distribution.
 """
 
 import dataclasses
@@ -121,14 +124,14 @@ class SafeLifeLevelIterator:
     specs (reference ``safelife/level_iterator.py``): path resolution with
     the level-directory fallback, forked workers that generate ahead,
     one ``SeedSequence.spawn`` a level, the ``distinct_levels`` cache and
-    the ``get_next_parameters`` hook of the curricula."""
+    the ``get_next_parameters`` hook of the curricula. With
+    ``device_batch`` > 0 the procgen levels anneal ``device_batch`` at a
+    time on ``device`` (no workers)."""
 
     def __init__(self, *paths, repeat_levels=None, distinct_levels=None,
-                 num_workers=0, max_queue=10, seed=None, device_batch=0):
-        if device_batch:
-            raise NotImplementedError(
-                "device-batched level generation (device_batch) is not "
-                "ported yet (ROADMAP.md queue 1 item 8)")
+                 num_workers=0, max_queue=10, seed=None, device_batch=0,
+                 device="cuda"):
+        self.device = resolve_device(device) if device_batch else None
         self.file_data = load_files(paths)
         self.level_cache = []
 
@@ -136,8 +139,10 @@ class SafeLifeLevelIterator:
             repeat_levels = any(d[1] == "procgen" for d in self.file_data)
         self.repeat_levels = repeat_levels
         self.distinct_levels = distinct_levels
-        self.num_workers = num_workers
-        self.max_queue = max_queue if num_workers > 0 else 1
+        self.device_batch = device_batch
+        self.num_workers = 0 if device_batch else num_workers
+        self.max_queue = max(max_queue if self.num_workers > 0 else 1,
+                             device_batch)
         self.results = None
         self.pool = None
         self.idx = 0
@@ -153,6 +158,8 @@ class SafeLifeLevelIterator:
         return self.file_data[self.idx % len(self.file_data)]
 
     def fill_queue(self):
+        if self.device_batch:
+            return self._fill_queue_batched()
         if self.results is None:
             self.results = queue.deque(maxlen=self.max_queue)
         if self.num_workers > 0 and self.pool is None:
@@ -178,6 +185,54 @@ class SafeLifeLevelIterator:
             else:
                 result = _level_from_data(*data, **kwargs)
             self.results.append((data, result))
+
+    def _fill_queue_batched(self):
+        """Refill the queue with one device-batched generation round, only
+        once it is empty: topping it up on every ``__next__`` would anneal
+        one chain a call after the first fill. The gating is the host
+        path's (the ``distinct_levels`` cache, ``repeat_levels``, the
+        curricula's ``get_next_parameters``); static entries pass
+        through, and every procgen request of the round anneals in one
+        call of :func:`..procgen.batched.gen_games_batched`."""
+        from ..procgen.batched import gen_games_batched
+
+        if self.results is None:
+            self.results = queue.deque(maxlen=self.max_queue)
+        if self.results:
+            return
+        pending = []
+        while len(self.results) + len(pending) < self.max_queue:
+            if self.distinct_levels is not None \
+                    and self.idx >= self.distinct_levels:
+                break
+            if not self.repeat_levels and self.idx >= len(self.file_data):
+                break
+            data = self.get_next_parameters()
+            if data is None:
+                break
+            self.idx += 1
+            seed = self._seed.spawn(1)[0]
+            if data[1] == "procgen":
+                pending.append((data, seed))
+            else:
+                self.results.append(
+                    (data, _level_from_data(*data, seed=seed)))
+        if not pending:
+            return
+        # A dedicated spawn seeds the device chains, independent of the
+        # levels' own host streams.
+        generator = torch.Generator(device=self.device).manual_seed(int(
+            self._seed.spawn(1)[0].generate_state(1, np.uint32)[0]))
+        levels = gen_games_batched(
+            [d[2] for d, _ in pending],
+            [np.random.default_rng(s) for _, s in pending], generator)
+        for (data, seed), lv in zip(pending, levels):
+            if data[0]:
+                lv.name = os.path.basename(str(data[0])) \
+                    .replace(".yaml", "").replace(".json", "")
+                if getattr(seed, "spawn_key", None):
+                    lv.name += "-e" + str(seed.spawn_key[-1])
+            self.results.append((data, lv))
 
     def close(self):
         """Terminate the worker processes (idempotent).

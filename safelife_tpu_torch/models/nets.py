@@ -3,7 +3,8 @@
 (5x5/s2 -> 32, 3x3/s2 -> 64, 3x3/s1 -> 64, ReLU) feeding a policy+value
 head (dense 512) or dueling Q heads (dense 256 each).
 
-Port of ``safelife_tpu/models/nets.py``: ``unpack_obs`` (``:74-81``),
+Port of ``safelife_tpu/models/nets.py``: ``PRECISIONS`` (``:28-41``),
+``unpack_obs`` (``:74-81``),
 ``SafeLifeCNN`` (``:84-101``), ``cnn_output_features`` (``:104-113``),
 ``SafeLifePolicyNetwork`` (``:116-146``) and ``SafeLifeQNetwork``
 (``:149-171``, two dense-256 dueling heads).
@@ -15,6 +16,13 @@ convolutions to match the reference's (c, w, h) geometry, and the feature
 map is flattened in (h, w, c) order so that flax parameters load
 unchanged (:mod:`.convert`). The convolutions and dense layers are plain
 ``nn.Conv2d``/``nn.Linear``: the JAX package leaves them to XLA too.
+
+Each network runs in its ``precision`` (:data:`PRECISIONS`, the JAX
+package's names): strict float32 by default, TF32 for cuBLAS and cuDNN, or
+bfloat16 autocast around the convolutions and dense layers, with the
+outputs cast back to float32 before the softmax and the dueling sum. The
+modes mean the same on the CPU, where TF32 does not exist and the flags
+change nothing.
 """
 
 import contextlib
@@ -40,17 +48,44 @@ Q_HIDDEN_WIDTH = 256
 NUM_ACTIONS = 9
 
 
+#: The JAX package's precision names (``safelife_tpu/models/nets.py:28-41``)
+#: -> the port's learner mode. "float32" is the training default: the
+#: reference trains in strict float32, and PPO's clipped-ratio loss rides on
+#: small advantage signals.
+PRECISIONS = {
+    "float32": "float32",
+    "highest": "float32",
+    "tensorfloat32": "tensorfloat32",
+    "high": "tensorfloat32",
+    "bfloat16": "bfloat16",
+    "default": "bfloat16",
+}
+
+
+def precision_mode(precision):
+    """The mode of a precision name; an unknown name raises."""
+    if precision not in PRECISIONS:
+        raise ValueError("unknown precision %r (one of %s)"
+                         % (precision, ", ".join(PRECISIONS)))
+    return PRECISIONS[precision]
+
+
 @contextlib.contextmanager
-def strict_float32():
-    """Strict float32 for the network's products and convolutions, as the
-    JAX package's "float32" training default: TF32 off for cuBLAS and for
-    cuDNN (which allows it for float32 convolutions by default). Both flags
-    are process-wide and read when an operation runs, so a learner runs its
+def learner_precision(precision, device_type="cuda"):
+    """The network math of ``precision`` on ``device_type``: TF32 off for
+    cuBLAS and cuDNN (which allows it for float32 convolutions by
+    default), except under "tensorfloat32", which turns it on for both;
+    "bfloat16" adds ``torch.autocast`` to bfloat16. The flags are
+    process-wide and read when an operation runs, so a learner runs its
     loss forward, ``backward()`` and optimizer step inside this context."""
+    mode = precision_mode(precision)
+    tf32 = mode == "tensorfloat32"
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32), \
+                torch.autocast(device_type, dtype=torch.bfloat16,
+                               enabled=mode == "bfloat16"):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -92,11 +127,15 @@ class SafeLifeCNN(nn.Module):
 
 
 class _PackedViewNetwork(nn.Module):
-    """The CNN trunk on observations that are NHWC floats or, with
-    ``unpack_channels``, packed int32 views unpacked at the input."""
+    """The CNN trunk on observations that are NHWC floats or uint8
+    channels or, with ``unpack_channels``, packed int32 views unpacked at
+    the input; the layers run in ``precision``."""
 
-    def __init__(self, view_shape, num_channels, unpack_channels, device):
+    def __init__(self, view_shape, num_channels, unpack_channels, device,
+                 precision):
         super().__init__()
+        precision_mode(precision)
+        self.precision = precision
         if unpack_channels is not None:
             unpack_channels = tuple(unpack_channels)
             num_channels = len(unpack_channels)
@@ -108,7 +147,8 @@ class _PackedViewNetwork(nn.Module):
             tuple(view_shape) + (num_channels,))
 
     def trunk(self, obs):
-        """Trunk features [N, features]; call inside strict_float32()."""
+        """Trunk features [N, features]; call inside
+        :func:`learner_precision` of ``self.precision``."""
         return self.cnn(obs.to(torch.float32))
 
     def unpack(self, obs):
@@ -127,20 +167,21 @@ class SafeLifePolicyNetwork(_PackedViewNetwork):
     """
 
     def __init__(self, view_shape=(25, 25), num_channels=None,
-                 unpack_channels=None, device="cuda"):
+                 unpack_channels=None, device="cuda", precision="float32"):
         dev = resolve_device(device)
-        super().__init__(view_shape, num_channels, unpack_channels, dev)
+        super().__init__(view_shape, num_channels, unpack_channels, dev,
+                         precision)
         self.dense = nn.Linear(self.features, HIDDEN_WIDTH, device=dev)
         self.value = nn.Linear(HIDDEN_WIDTH, 1, device=dev)
         self.logits = nn.Linear(HIDDEN_WIDTH, NUM_ACTIONS, device=dev)
 
     def forward(self, obs):
         obs = self.unpack(obs)
-        with strict_float32():
+        with learner_precision(self.precision, obs.device.type):
             x = torch.relu(self.dense(self.trunk(obs)))
             value = self.value(x)[..., 0]
-            policy = torch.softmax(self.logits(x), dim=-1)
-        return value, policy
+            logits = self.logits(x)
+        return value.float(), torch.softmax(logits.float(), dim=-1)
 
 
 class SafeLifeQNetwork(_PackedViewNetwork):
@@ -149,9 +190,10 @@ class SafeLifeQNetwork(_PackedViewNetwork):
     (models.py:46-76), the mean advantage subtracted."""
 
     def __init__(self, view_shape=(25, 25), num_channels=None,
-                 unpack_channels=None, device="cuda"):
+                 unpack_channels=None, device="cuda", precision="float32"):
         dev = resolve_device(device)
-        super().__init__(view_shape, num_channels, unpack_channels, dev)
+        super().__init__(view_shape, num_channels, unpack_channels, dev,
+                         precision)
         self.adv_hidden = nn.Linear(self.features, Q_HIDDEN_WIDTH, device=dev)
         self.adv = nn.Linear(Q_HIDDEN_WIDTH, NUM_ACTIONS, device=dev)
         self.value_hidden = nn.Linear(self.features, Q_HIDDEN_WIDTH,
@@ -160,8 +202,9 @@ class SafeLifeQNetwork(_PackedViewNetwork):
 
     def forward(self, obs):
         obs = self.unpack(obs)
-        with strict_float32():
+        with learner_precision(self.precision, obs.device.type):
             x = self.trunk(obs)
             adv = self.adv(torch.relu(self.adv_hidden(x)))
             val = self.value(torch.relu(self.value_hidden(x)))
-            return val + adv - adv.mean(-1, keepdim=True)
+        adv, val = adv.float(), val.float()
+        return val + adv - adv.mean(-1, keepdim=True)

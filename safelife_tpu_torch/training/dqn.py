@@ -29,10 +29,12 @@ entry's views from its source into its slot. Only kept rows are written:
 at 4096 lanes about 20 MB a step, where seven copies of every view would
 be 143 MB.
 
-The network's forward, backward and Adam step run under
-:func:`..models.nets.strict_float32`. Randomness comes from one
-``torch.Generator`` on the pool's device; ``actions`` and ``sample_idx``
-inject the draws instead (tests replay the JAX package's).
+The network's forward, backward and Adam step run in the network's
+precision (:func:`..models.nets.learner_precision`). Observations are
+stored as the env emits them: packed int32 views, or uint8 channels with
+``packed_obs`` off. Randomness comes from one ``torch.Generator`` on the
+pool's device; ``actions`` and ``sample_idx`` inject the draws instead
+(tests replay the JAX package's).
 """
 
 import copy
@@ -41,7 +43,7 @@ import dataclasses
 import torch
 
 from ..env import wrappers as W
-from ..models.nets import strict_float32
+from ..models.nets import learner_precision
 from ..utils.device import require_device, resolve_device
 from .ppo import (EPISODE_KEYS, _flatten_agents, _model_device, _stack,
                   make_optimizer)
@@ -379,7 +381,8 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
     batch = {k: getattr(replay, k).index_select(0, sample_idx)
              for k in ("obs", "action", "reward", "next_obs", "done")}
     warm = size >= cfg.replay_initial
-    with strict_float32(), torch.set_grad_enabled(warm):
+    with learner_precision(dstate.model.precision, dev.type), \
+            torch.set_grad_enabled(warm):
         loss, metrics = td_loss(cfg, dstate.model, dstate.target_model, batch)
         if warm:
             dstate.optimizer.zero_grad(set_to_none=False)

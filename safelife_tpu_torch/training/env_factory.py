@@ -340,14 +340,6 @@ def build_environments(config, data_dir=None, num_envs=64, pool_size=None,
     # 0 generates levels synchronously in this process.
     procgen_workers = int(config.setdefault(
         'env.procgen_workers', procgen_workers))
-    if config.setdefault('env.device_procgen', 0):
-        raise NotImplementedError(
-            "env.device_procgen (device-batched level generation) is not "
-            "ported yet (ROADMAP.md queue 1 item 8)")
-    if not config.setdefault('env.packed_obs', True):
-        raise NotImplementedError(
-            "env.packed_obs: false (uint8 channel observations) is not "
-            "ported yet (ROADMAP.md queue 1 item 10)")
 
     seed = np.random.SeedSequence(config.setdefault('seed', None))
     training_seed, benchmark_seed = seed.spawn(2)
@@ -359,10 +351,13 @@ def build_environments(config, data_dir=None, num_envs=64, pool_size=None,
         spawn_key=training_seed.spawn_key + (np.uint32(0),))
 
     view_size = config.setdefault('env.view_size', 25)
-    # Packed views: the network unpacks TRAINING_CHANNELS at its input.
+    # Packed views (the default): the network unpacks TRAINING_CHANNELS at
+    # its input. Otherwise the env unpacks them after K3 into uint8
+    # channels, which the PPO trajectory and DQN's replay then store.
+    packed_obs = config.setdefault('env.packed_obs', True)
     env_cfg = E.EnvConfig(
         view_shape=(view_size, view_size),
-        output_channels=None,
+        output_channels=None if packed_obs else TRAINING_CHANNELS,
         time_limit=1000,
     )
     multiagent = bool(task_data.get('multiagent'))
@@ -386,6 +381,13 @@ def build_environments(config, data_dir=None, num_envs=64, pool_size=None,
 
     iter_class = task_data.get('iter_class', SafeLifeLevelIterator)
     iter_args = {'seed': training_seed, 'num_workers': procgen_workers}
+    # Opt-in device-batched level generation (procgen/batched.py): N
+    # levels anneal as N lockstep chains on the run's device, with no
+    # forked workers.
+    device_procgen = int(config.setdefault('env.device_procgen', 0))
+    if device_procgen:
+        iter_args.update(device_batch=device_procgen, num_workers=0,
+                         device=dev)
     if iter_class is CurricularLevelIterator:
         iter_args['logger'] = training_logger
         iter_args['curriculum_params'] = {

@@ -20,7 +20,8 @@ Port of ``safelife_tpu/training/ppo.py``: ``PPOConfig`` (``:33-48``),
 One iteration is a rollout of ``steps_per_env`` wrapped steps (kernels K1,
 K2 and K3 on CUDA, through :mod:`..env.wrappers`), GAE, then the Adam
 minibatch updates. The network's forward, backward and optimizer step run
-under :func:`..models.nets.strict_float32` (no TF32). Randomness comes
+in the network's precision (:func:`..models.nets.learner_precision`;
+strict float32, no TF32, by default). Randomness comes
 from one ``torch.Generator`` on the pool's device; ``actions`` and
 ``perms`` inject the draws instead (tests replay the JAX package's).
 """
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..env import wrappers as W
-from ..models.nets import strict_float32
+from ..models.nets import learner_precision
 from ..utils.device import require_device
 from .runner import sample_actions
 
@@ -212,7 +213,8 @@ def _batch_loss(cfg, model, batch, chunk):
     n = batch["obs"].shape[0]
     chunk = max(chunk, 1)
     sums = torch.zeros(3, device=batch["advantages"].device)
-    with torch.no_grad(), strict_float32():
+    with torch.no_grad(), learner_precision(
+            model.precision, batch["advantages"].device.type):
         for lo in range(0, n, chunk):
             mb = {k: v[lo:lo + chunk] for k, v in batch.items()}
             terms = _loss_terms(cfg, model, mb["obs"], mb["actions"],
@@ -240,7 +242,7 @@ def train_on_batch(cfg, ppo_state, batch, generator, perms=None):
     n = batch["obs"].shape[0]
     dev = batch["obs"].device
     bounds = _minibatch_bounds(n, cfg.num_minibatches)
-    with strict_float32():
+    with learner_precision(model.precision, dev.type):
         for epoch in range(cfg.epochs_per_batch):
             if perms is None:
                 perm = torch.randperm(n, generator=generator, device=dev)

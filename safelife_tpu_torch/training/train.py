@@ -43,26 +43,33 @@ TELEMETRY_SAMPLES = 1000
 
 
 def build_model(bundle, algo="ppo", device="cuda"):
-    """The network of ``algo`` for the bundle's packed views, on
-    ``device``: PPO's policy network or DQN's Q network.
+    """(network, obs shape, obs dtype) of ``algo`` for the bundle's
+    observation mode, on ``device``: PPO's policy network or DQN's Q
+    network. With packed views (``bundle.packed_obs``) the network unpacks
+    ``bundle.obs_channels`` at its input from int32 [vh, vw]; otherwise it
+    takes the env's uint8 channels [vh, vw, C].
 
-    Both run in strict float32 with torch's own layer init: a
-    ``train.precision`` other than float32 (ROADMAP.md queue 1 item 5) and
-    ``train.torch_init: false`` (the JAX package's flax init) raise.
+    The network runs in ``train.precision`` (``models/nets.py::
+    PRECISIONS``; an unknown name raises) with torch's own layer init:
+    ``train.torch_init: false`` (the JAX package's flax init) raises.
     """
     nets = {"ppo": SafeLifePolicyNetwork, "dqn": SafeLifeQNetwork}
     if algo not in nets:
         raise ValueError("unknown algo %r" % algo)
     precision = config.setdefault("train.precision", "float32")
-    if precision != "float32":
-        raise NotImplementedError(
-            "train.precision %r is not ported yet (ROADMAP.md queue 1 item "
-            "5)" % precision)
     if not config.setdefault("train.torch_init", True):
         raise ValueError("train.torch_init: false asks for flax's init; the "
                          "port has torch's own layer init only")
-    return nets[algo](view_shape=bundle.env_cfg.view_shape,
-                      unpack_channels=bundle.obs_channels, device=device)
+    view = tuple(bundle.env_cfg.view_shape)
+    if bundle.packed_obs:
+        model = nets[algo](view_shape=view,
+                           unpack_channels=bundle.obs_channels,
+                           device=device, precision=precision)
+        return model, view, torch.int32
+    n_ch = len(bundle.env_cfg.output_channels)
+    model = nets[algo](view_shape=view, num_channels=n_ch, device=device,
+                       precision=precision)
+    return model, view + (n_ch,), torch.uint8
 
 
 def load_for_eval(algo, bundle, data_dir, device="cuda"):
@@ -71,7 +78,7 @@ def load_for_eval(algo, bundle, data_dir, device="cuda"):
     if not data_dir:
         raise ValueError("benchmark run type needs a data_dir with "
                          "checkpoints")
-    model = build_model(bundle, algo, device=device)
+    model = build_model(bundle, algo, device=device)[0]
     state, _, step = CheckpointManager(data_dir).restore(device=device)
     if state is None:
         raise FileNotFoundError("no checkpoints under %s" % data_dir)
@@ -292,7 +299,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
     with torch.random.fork_rng(
             devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        model = build_model(bundle, "ppo", device=dev)
+        model = build_model(bundle, "ppo", device=dev)[0]
     pstate = ppo.init_ppo_state(ppo_cfg, model, device=dev)
 
     pool = bundle.pool_manager.pool
@@ -408,12 +415,13 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
     with torch.random.fork_rng(
             devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        model = build_model(bundle, "dqn", device=dev)
+        model, obs_shape, obs_dtype = build_model(bundle, "dqn", device=dev)
     pool = bundle.pool_manager.pool
-    # One n-step ring per flattened lane x agent slot; packed int32 views.
+    # One n-step ring per flattened lane x agent slot, in the env's
+    # observation form.
     dstate = dqn.init_dqn_state(
-        cfg, model, batch_size * pool.num_agents, env_cfg.view_shape,
-        torch.int32, device=dev)
+        cfg, model, batch_size * pool.num_agents, obs_shape, obs_dtype,
+        device=dev)
     ws, obs = W.reset(env_cfg, wcfg, pool, batch_size, device=dev)
     ckpt = data_dir and CheckpointManager(
         data_dir, interval=checkpoint_interval)

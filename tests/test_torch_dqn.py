@@ -333,7 +333,7 @@ def test_td_loss_and_gradients_match_jax():
                              {k: jnp.asarray(v) for k, v in batch.items()}),
         has_aux=True)(params)
     net, tnet = _torch_q(params), _torch_q(target)
-    with TN.strict_float32():
+    with TN.learner_precision("float32", "cpu"):
         tl, tm = TD.td_loss(TD.DQNConfig(), net, tnet,
                             {k: torch.from_numpy(v) for k, v in batch.items()})
         tl.backward()

@@ -151,7 +151,7 @@ def test_calculate_loss_and_gradients_match_jax(weighted):
     tb = {k: None if v is None else torch.from_numpy(v)
           for k, v in batch.items()}
     tb["actions"] = tb["actions"].long()
-    with TN.strict_float32():
+    with TN.learner_precision("float32", "cpu"):
         tl, tm = TP.calculate_loss(TP.PPOConfig(), net,
                                    *[tb[k] for k in keys])
         tl.backward()

@@ -295,8 +295,18 @@ def test_level_iterator_matches_jax():
     a = JIT.SafeLifeLevelIterator("benchmarks/v1.0/navigation.npz", **kw)
     b = TIT.SafeLifeLevelIterator("benchmarks/v1.0/navigation.npz", **kw)
     assert [x.name for x in a] == [y.name for y in b]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TIT.SafeLifeLevelIterator("random/append-still", device_batch=4)
+    # device_batch anneals on the device asked for; without a card the
+    # default "cuda" raises rather than falling back to the CPU.
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            TIT.SafeLifeLevelIterator("random/append-still", device_batch=2)
+    it = TIT.SafeLifeLevelIterator("random/append-still-easy", seed=0,
+                                   device_batch=2, device="cpu")
+    made = [next(it) for _ in range(2)]
+    assert [lv.name for lv in made] == ["append-still-easy-e0",
+                                        "append-still-easy-e1"]
+    for lv in made:
+        assert len(lv.agent_locs) == 1 and lv.board.shape == (26, 26)
 
 
 class _Logger:

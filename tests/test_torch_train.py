@@ -129,24 +129,54 @@ def test_build_environments_matches_jax(task):
     assert JGC.config.check_for_unused() == TGC.config.check_for_unused()
 
 
-def test_unported_options_raise(tmp_path):
-    for extra in ({"env.device_procgen": 8}, {"env.packed_obs": False}):
-        _fresh()
-        TGC.config.update({"env_type": "append-still", **extra})
-        with pytest.raises(NotImplementedError, match="item (8|10)"):
-            TF.build_environments(TGC.config, num_envs=4, pool_size=4,
-                                  procgen_workers=0, device="cpu")
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """The modes that once raised now build and train on the CPU:
+    ``env.packed_obs: false`` with ``train.precision`` bfloat16 (uint8
+    channels into a bfloat16 learner) and ``env.device_procgen`` (the
+    start-up pool and its refills from the device annealer); --algo dqn
+    trains, resumes and benchmarks. ``train.torch_init: false`` and an
+    unknown task still raise."""
+    from safelife_tpu_torch.procgen import batched as TB
+
+    run = str(tmp_path / "channels")
+    out = _train(run, 1280, extra=["--skip-benchmark", "-x", json.dumps({
+        "env.pool_size": 4, "env.procgen_workers": 0,
+        "env.packed_obs": False, "train.precision": "bfloat16"})])
+    assert not out.bundle.packed_obs and out.model.precision == "bfloat16"
+    assert out.model.unpack_channels is None
+    assert out.state.num_steps == 1280 and _params_finite(out.model)
+    saved, _, _ = CheckpointManager(run).restore(device="cpu")
+    ws = saved["env_state"]
+    obs = TF.E._batch_obs(out.bundle.env_cfg, saved["pool"], ws.env)
+    assert obs.dtype == torch.uint8
+    assert obs.shape[-1] == len(TN.TRAINING_CHANNELS)
+
+    made = []
+    real = TB.gen_games_batched
+
+    def spy(param_dicts, rngs, generator):
+        made.append(len(param_dicts))
+        return real(param_dicts, rngs, generator)
+
+    monkeypatch.setattr(TB, "gen_games_batched", spy)
+    out = _train(str(tmp_path / "device"), 1280, extra=[
+        "--skip-benchmark", "-x", json.dumps({
+            "env.pool_size": 4, "env.procgen_workers": 0,
+            "env.device_procgen": 4})])
+    it = out.bundle.pool_manager.iterator
+    assert it.device_batch == 4 and it.num_workers == 0
+    assert made and set(made) == {4}
+    assert out.state.num_steps == 1280 and _params_finite(out.model)
+
     # --algo dqn is ported: it trains, resumes and benchmarks on the CPU.
     _check_dqn_cli(str(tmp_path / "dqn"))
     _fresh()
     with pytest.raises(ValueError, match="not a recognized task"):
         CLI.main(["train", "-e", "no-such-task", "--device", "cpu"])
-    for key, val in (("train.precision", "bfloat16"),
-                     ("train.torch_init", False)):
-        _fresh()
-        TGC.config[key] = val
-        with pytest.raises((NotImplementedError, ValueError)):
-            TT.build_model(None, device="cpu")
+    _fresh()
+    TGC.config["train.torch_init"] = False
+    with pytest.raises(ValueError, match="torch_init"):
+        TT.build_model(None, device="cpu")
 
 
 CPU = ["--device", "cpu", "-e", "append-still", "--seed", "3", "-x",
