@@ -16,7 +16,12 @@ non-zero:
    (3,3), (4,4), (7,13), (26,26), (33,40) and (96,128) x B in {1, 7, 512,
    4096} (staged), and (112,112), (6,2100) and (128,128) x B in {1, 7, 64}
    (above MAX_CELLS: the global-memory form), K1 with 1-3 adjacent agents,
-   both deterministic and with Philox spawns at p in {0, 0.3, 1}; K3
+   both deterministic and with Philox spawns at p in {0, 0.3, 1}; K1 and
+   K2 at non-zero counter offsets in both forms (slices of a 4096-lane
+   batch of 26x26 boards and of a 64-lane batch of 112x112 boards, each
+   launched at its first lane as ``lane_offset``, equal the whole batch's
+   launch; K2 on halo slabs of a board at ``cell_offset`` equals those
+   rows of the whole board's step, the toroidal wrap included); K3
    ``recenter_views`` for views (25,25), (15,15), (7,9) on 26x26 boards,
    views larger than the board ((25,25) on 3x3, (15,15) on 10x12, (7,6) on
    6x6), and (25,25) on 192x192 boards (too large to stage: the
@@ -150,9 +155,36 @@ non-zero:
    invariant. The CLI at 64 lanes, 20,480 steps and an 8-episode
    benchmark, once with ``-x '{"train.precision": "bfloat16",
    "env.packed_obs": false}'`` and once with ``-x '{"env.device_procgen":
-   64}'`` (its start-up and each 64-level device round timed); each run
+   64, "env.pool_size": 64}'`` (its start-up and each 64-level device
+   round timed); each run
    logs, checkpoints and benchmarks with launches equal to
    ``predicted_launches``.
+
+11. Multi-process training (``safelife_tpu_torch/parallel``). Each helper
+   of ``parallel/mesh.py`` on CUDA tensors in an NCCL group of one rank,
+   against the identity it must give there. Two rank processes (the
+   ``spawn`` method, each under a time limit) on the one card over
+   ``gloo``, 2 x 2048 lanes of the 4096-lane training cell on
+   append-spawn (25x25 views, the inaction baseline), against this
+   process on all 4096: K1 and K2 timed at each rank's lanes; 200 wrapped
+   steps, every step's boards, views, rewards and done flags equal lane
+   for lane (64-bit fingerprints); a warm-up and a timed
+   ``ppo.train_iteration`` (``PPOConfig()``), the first rollout's loss
+   within 1e-5 relative, the parameters bitwise equal on the ranks and
+   within ``P11_UPDATE_NORM`` of the update's norm of this process's, the
+   all-reduces timed, each rank's K1-K3 launches 20 an iteration; a
+   32-unit DQN chunk with ``DQNConfig()``'s 100,000-view replay, every
+   rank's replay equal to this process's row for row, the Q parameters
+   bitwise equal on the ranks and within ``P11_DQN_MAX_ABS`` of this
+   process's; 100 stochastic steps of a 192x192 board with spawners
+   row-sharded over the ranks (K2 on halo slabs) equal to 100 K2 steps of
+   the whole board. Then the CLI under ``torchrun --nproc-per-node 1``
+   (NCCL): ``train runs/chip-smoke-torchrun-<pid> -e append-still
+   --batch 64 --steps 10240 --skip-benchmark -x '{"env.pool_size":
+   32}'``, then the same to 20480
+   (the reports' ``pcheck``, the checkpoint restored). With two cards or
+   more, the iteration under NCCL, one rank a card; otherwise it prints
+   ``{"nccl_two_ranks": "not run: 1 card"}``.
 
 Between phases 9 and 10 it times each kernel form and its plain version
 at the shapes of the path that runs it (the main path's at B = 512 and
@@ -426,6 +458,65 @@ def check_physics(dev, errs, pool_boards, pool_locs):
         raise AssertionError("K2 spawn fraction %.4f outside (0.25, 0.35)"
                              % frac)
     log("K2 spawn fraction at p=0.3 (26x26, B=4096): %.4f" % frac)
+
+
+def check_offsets(dev, errs):
+    """K1 and K2 at non-zero counter offsets, in both forms: each slice of
+    a global batch launched with its first lane as ``lane_offset`` equals
+    the global launch and the plain version bit for bit, and K2 on a halo
+    slab of rows r-1 .. r+k of one lane's board, at ``cell_offset =
+    (r - 1) * W`` and that lane's ``lane_offset``, equals rows r .. r+k-1
+    of the whole batch's step (r = 0 wraps round the torus)."""
+    from safelife_tpu_torch.ops import physics as P
+
+    rng = np.random.default_rng(9)
+    seed = torch.tensor([123456789, -987654321], dtype=torch.int32,
+                        device=dev)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    forms = set()
+    for (h, w), b, cuts, slabs in (
+            ((26, 26), 4096, (0, 1000, 2048, 4096), ((0, 10), (5, 12))),
+            ((112, 112), 64, (0, 7, 32, 64), ((2, 108), (0, 30)))):
+        board, locs = soup(rng, b, h, w, 1, spawners=True)
+        flat, locs = t(board.reshape(b, h * w)), t(locs)
+        acts = t(rng.integers(0, 9, (b, 1)).astype(np.int32))
+        sp = torch.full((b,), 0.3, device=dev)
+        kw = dict(h=h, w=w, stochastic=True)
+        whole1 = P.fused_actions_advance(flat, locs, acts, sp, seed, **kw)
+        whole2 = P.advance(flat, sp, seed, **kw)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            a1 = tuple(x[lo:hi].contiguous() for x in (flat, locs, acts, sp))
+            forms.update(compare(
+                errs,
+                lambda: P.fused_actions_advance(*a1, seed, lane_offset=lo,
+                                                **kw),
+                lambda: P.fused_actions_advance_plain(
+                    *a1, seed, lane_offset=lo, **kw)))
+            max_err(zip(P.fused_actions_advance(*a1, seed, lane_offset=lo,
+                                                **kw),
+                        (x[lo:hi] for x in whole1)))
+            forms.update(compare(
+                errs, lambda: P.advance(a1[0], a1[3], seed, lane_offset=lo,
+                                        **kw),
+                lambda: P.advance_plain(a1[0], a1[3], seed, lane_offset=lo,
+                                        **kw)))
+            max_err([(P.advance(a1[0], a1[3], seed, lane_offset=lo, **kw),
+                      whole2[lo:hi])])
+        lane = b // 2
+        grid = flat[lane].reshape(h, w)
+        for r, k in slabs:
+            rows = torch.arange(r - 1, r + k + 1, device=dev) % h
+            slab = grid.index_select(0, rows).reshape(1, -1).contiguous()
+            skw = dict(h=k + 2, w=w, stochastic=True, lane_offset=lane,
+                       cell_offset=(r - 1) * w)
+            forms.update(compare(
+                errs, lambda: P.advance(slab, sp[:1], seed, **skw),
+                lambda: P.advance_plain(slab, sp[:1], seed, **skw)))
+            got = P.advance(slab, sp[:1], seed, **skw).reshape(k + 2, w)
+            max_err([(got[1:-1], whole2[lane].reshape(h, w)[r:r + k])])
+    log("K1, K2 at lane offsets (slices of B=4096 at 26x26 and B=64 at "
+        "112x112 equal the global launch) and K2 at cell offsets (halo "
+        "slabs, the wrap included): %s exact" % ", ".join(sorted(forms)))
 
 
 #: K3 cases of phase 1: (board shape, view shape, batch). Views larger
@@ -3331,8 +3422,8 @@ def run_mode_cli(dev, card, name, extra):
 
 def run_cli_modes(dev, card):
     """The CLI in bfloat16 on uint8 channels, and with device procgen at
-    64 (its start-up pool of 128 levels and its refills from the device
-    annealer, timed call by call)."""
+    64 (a start-up pool of 64 levels, one device round, and its refills
+    from the device annealer, timed call by call)."""
     from safelife_tpu_torch.procgen import batched as B
 
     out, _, launches, wall = run_mode_cli(
@@ -3346,7 +3437,8 @@ def run_cli_modes(dev, card):
 
     with timed_calls(B, ["gen_games_batched"]) as rec:
         out, calls, launches, wall = run_mode_cli(
-            dev, card, "device-procgen", {"env.device_procgen": 64})
+            dev, card, "device-procgen",
+            {"env.device_procgen": 64, "env.pool_size": 64})
     it = out.bundle.pool_manager.iterator
     rounds = [len(r) for r in rec.get("gen_games_batched:results", [])]
     if it.device_batch != 64 or it.device.type != "cuda" or not rounds \
@@ -3421,6 +3513,600 @@ def run_phase_10(dev, spawn, prune, tree, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: multi-process training
+
+
+P11_LANES = 4096          # the training cell's global batch
+P11_RANKS = 2
+P11_ENV_STEPS = 200
+P11_DQN_UNITS = 32
+SPATIAL_BOARD = (192, 192)
+SPATIAL_STEPS = 100
+TORCHRUN_STEPS = (10240, 20480)  # one chunk of 8 iterations at 64 lanes
+TORCHRUN_POOL = 32        # the CLI's level pool (128 by default at 64 lanes)
+P11_TIMEOUT = 600         # each rank process's time limit, seconds
+#: Phase 11's bounds on the two ranks' learner against one process on the
+#: same card and batch: the PPO parameters after the iteration's 30 Adam
+#: steps within this share of the update's norm, the DQN parameters after
+#: the chunk within this of one process's, element by element. Sound runs
+#: (this phase and ``chip_sweep.py ranks``) read 2.1e-4 to 8.2e-4 of the
+#: update and 4.1e-7 to 1.8e-6; a fault planted in the ranks (a sample
+#: index shifted, the rank's own weight in the loss, a doubled DQN loss)
+#: 7.9e-2 to 0.18 and 2.7e-3 to 7.4e-3. Each bound lies about 5x above the
+#: sound readings.
+P11_UPDATE_NORM = 4e-3
+P11_DQN_MAX_ABS = 1e-5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def lane_fingerprints(x, weights):
+    """int64 [B]: each lane's elements (integers, or float32 by their bits)
+    weighted by fixed pseudo-random 64-bit words and summed; equal lanes
+    give equal words, and a differing element changes the word."""
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    x = x.reshape(x.shape[0], -1).to(torch.int64)
+    return (x * weights[:x.shape[1]]).sum(1)
+
+
+def fingerprint_weights(dev, n=1 << 16):
+    g = torch.Generator().manual_seed(11)
+    return torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                         dtype=torch.int64).to(dev)
+
+
+def p11_env(dev, levels, lanes):
+    """P11_ENV_STEPS wrapped steps of append-spawn (the inaction baseline,
+    packed 25x25 views) on ``lanes`` of P11_LANES (all of them for None)
+    under seeded actions: each step's lane fingerprints of the boards,
+    views, rewards and done flags, and the last boards."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+
+    pool = pack_levels(levels, device=dev)
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None)
+    wcfg = W.WrapperConfig(se_baseline="inaction")
+    ws, obs = W.reset(cfg, wcfg, pool, P11_LANES, device=dev, lanes=lanes)
+    lo, hi = (0, P11_LANES) if lanes is None else lanes[:2]
+    acts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 9, (P11_ENV_STEPS, P11_LANES, pool.num_agents)).astype(
+            np.int32)[:, lo:hi].copy()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = fingerprint_weights(dev)
+    prints = {k: [] for k in ("board", "obs", "reward", "done")}
+    t0 = time.perf_counter()
+    for t in range(P11_ENV_STEPS):
+        ws, obs, reward, done, _ = W.step(cfg, wcfg, pool, ws, acts[t], gen,
+                                          lanes=lanes)
+        for k, x in (("board", ws.env.board), ("obs", obs),
+                     ("reward", reward), ("done", done)):
+            prints[k].append(lane_fingerprints(x, w))
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return ({k: torch.stack(v).cpu().numpy() for k, v in prints.items()},
+            ws.env.board.cpu().numpy(), seconds)
+
+
+def iteration_launches(pcfg, pool, wcfg):
+    """K1-K3 launches of one ``train_iteration``: K1 and K3 once a step,
+    K2 once a step under the inaction baseline (and once more on goals
+    that evolve)."""
+    t = pcfg.steps_per_env
+    k2 = t * ((wcfg.se_baseline == "inaction")
+              + (not pool.all_goals_static))
+    return {"fused_actions_advance": t, "advance": k2, "recenter_views": t}
+
+
+def p11_ppo(dev, levels, tree, lanes):
+    """A warm-up ``ppo.train_iteration`` and a timed one at P11_LANES
+    global lanes (the rank's ``lanes``, or all): the loss of the first
+    rollout's batch under the initial parameters, the parameters after
+    both, the timed one's time, its all-reduces' and its launches."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.parallel import mesh as M
+    from safelife_tpu_torch.training import ppo as P
+
+    pool = pack_levels(levels, device=dev)
+    cfg = E.EnvConfig(view_shape=VIEW, output_channels=None)
+    wcfg = W.WrapperConfig(se_baseline="inaction")
+    pcfg = P.PPOConfig()
+    ps = P.init_ppo_state(pcfg, policy(tree, dev), device=dev)
+    ws, obs = W.reset(cfg, wcfg, pool, P11_LANES, device=dev, lanes=lanes)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # The rollout's batch under the initial parameters, then the same
+    # rollout again inside the iteration.
+    state = gen.get_state()
+    traj, _, final = P.rollout(cfg, wcfg, pool, ps.model, ws, obs, gen,
+                               pcfg.steps_per_env, lanes=lanes)
+    batch = P.flatten_batch(traj, *P.compute_gae(pcfg, traj, final))
+    shard = None if lanes is None else P.sample_shard(
+        pcfg.steps_per_env, pool.num_agents, lanes, dev)
+    _, m0 = P._batch_loss(pcfg, ps.model, batch, 4096, shard)
+    loss0 = float(m0["loss"])
+    del traj, batch
+    gen.set_state(state)
+    ps, ws, obs, _ = P.train_iteration(cfg, wcfg, pcfg, pool, ps, ws, obs,
+                                       gen, device=dev, lanes=lanes)
+    reduce_ms = []
+
+    def timed_reduce(*args):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize(dev)
+        reduce_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    real = M.allreduce_grads
+    M.allreduce_grads = timed_reduce
+    try:
+        ops.reset_launch_counts()
+        ms, (ps, ws, obs, m) = event_ms(lambda: P.train_iteration(
+            cfg, wcfg, pcfg, pool, ps, ws, obs, gen, device=dev,
+            lanes=lanes))
+        launches = ops.launch_counts()
+    finally:
+        M.allreduce_grads = real
+    check_launches("phase 11 PPO iteration", launches,
+                   iteration_launches(pcfg, pool, wcfg))
+    return {"loss0": loss0, "loss": float(m["loss"]),
+            "params": flat_params(ps.model).cpu().numpy(), "ms": ms,
+            "reduce_ms": sum(reduce_ms), "reduces": len(reduce_ms),
+            "launches": {k: v for k, v in launches.items() if v},
+            "num_steps": ps.num_steps}
+
+
+def p11_dqn(dev, levels, lanes):
+    """One P11_DQN_UNITS-unit ``dqn.train_chunk`` at P11_LANES global lanes
+    with ``DQNConfig()`` (the 100,000-view replay): the replay's row
+    fingerprints and push count, the parameters after it, its time."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import dqn as D
+
+    pool = pack_levels(levels, device=dev)
+    env_cfg = E.EnvConfig(view_shape=VIEW, output_channels=None)
+    wcfg = W.WrapperConfig(se_baseline="inaction")
+    cfg = D.DQNConfig()
+    local = P11_LANES if lanes is None else lanes.size
+    ds = D.init_dqn_state(cfg, q_network(dev, 7), local * pool.num_agents,
+                          VIEW, torch.int32, device=dev)
+    ws, obs = W.reset(env_cfg, wcfg, pool, P11_LANES, device=dev,
+                      lanes=lanes)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_steps = max(cfg.optimize_interval // P11_LANES, 1)
+    ms, (ds, ws, obs, m) = event_ms(lambda: D.train_chunk(
+        env_cfg, wcfg, cfg, pool, ds, ws, obs, gen, n_steps, P11_DQN_UNITS,
+        device=dev, lanes=lanes))
+    w = fingerprint_weights(dev)
+    prints = {k: lane_fingerprints(getattr(ds.replay, k), w).cpu().numpy()
+              for k in ("obs", "action", "reward", "next_obs", "done")}
+    return {"replay": prints, "idx": ds.replay.idx, "ms": ms,
+            "params": flat_params(ds.model).cpu().numpy(),
+            "warm": ds.replay.size() >= cfg.replay_initial}
+
+
+def p11_kernels(dev, levels, lanes):
+    """Device milliseconds a launch of K1 and K2 (``device_ms``, 200
+    launches) on ``lanes`` of a P11_LANES reset of append-spawn, at their
+    lane offset, with spawns."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.env import env as E
+    from safelife_tpu_torch.env.state import pack_levels
+
+    pool = pack_levels(levels, device=dev)
+    state, _ = E.reset(E.EnvConfig(view_shape=VIEW, output_channels=None),
+                       pool, P11_LANES, lanes=lanes)
+    b, h, w = state.board.shape
+    flat = state.board.reshape(b, h * w).contiguous()
+    sp = pool.spawn_prob.index_select(0, state.level_idx).contiguous()
+    acts = torch.zeros((b, pool.num_agents), dtype=torch.int32, device=dev)
+    seed = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    kw = dict(h=h, w=w, stochastic=True, lane_offset=lanes.start)
+    return {
+        "fused_actions_advance": device_ms(
+            lambda: ops.fused_actions_advance(flat, state.agent_locs, acts,
+                                              sp, seed, **kw),
+            KERNELS["fused_actions_advance"][2], 200),
+        "advance": device_ms(lambda: ops.advance(flat, sp, seed, **kw),
+                             KERNELS["advance"][2], 200),
+    }
+
+
+def spatial_inputs():
+    rng = np.random.default_rng(6)
+    board, _ = soup(rng, 1, *SPATIAL_BOARD, 0, spawners=True)
+    seeds = rng.integers(-2 ** 31, 2 ** 31 - 1, (SPATIAL_STEPS, 2)).astype(
+        np.int32)
+    return board[0], seeds
+
+
+def p11_spatial(dev, rank, world):
+    """SPATIAL_STEPS stochastic steps of a SPATIAL_BOARD board with
+    spawners: the rank's rows of the row-sharded advance (K2 on halo
+    slabs), or the whole board's K2 steps for ``world`` None."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.parallel import spatial as S
+
+    board, seeds = spatial_inputs()
+    seeds = torch.from_numpy(seeds).to(dev)
+    h, w = board.shape
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if world is None:
+        flat = torch.from_numpy(board.reshape(1, -1)).to(dev)
+        prob = torch.full((1,), 0.3, device=dev)
+        for seed in seeds:
+            flat = ops.advance(flat, prob, seed, h=h, w=w, stochastic=True)
+        out = flat.reshape(h, w)
+    else:
+        hl = h // world
+        rows = torch.from_numpy(board[rank * hl:(rank + 1) * hl]).to(dev)
+        out = S.advance_sharded_nstep(rows, seeds, 0.3)
+    torch.cuda.synchronize(dev)
+    return {"rows": out.cpu().numpy(), "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+
+
+def p11_rank(rank, world, port, backend, device_index, tasks, tree,
+             results):
+    """One rank process of phase 11: joins the group, runs ``tasks`` on
+    its lanes and puts its results (or its traceback) on ``results``."""
+    import traceback
+
+    from safelife_tpu_torch.io.levels import load_levels
+    from safelife_tpu_torch.parallel import mesh as M
+
+    try:
+        dev = torch.device("cuda", device_index)
+        torch.cuda.set_device(dev)
+        M.initialize_distributed(
+            backend=backend, rank=rank, world_size=world, device=dev,
+            init_method="tcp://127.0.0.1:%d" % port, timeout=P11_TIMEOUT)
+        lanes = M.lane_range(P11_LANES)
+        levels = load_levels(TRAIN_LEVELS)
+        out = {}
+        for task in tasks:
+            M.barrier()
+            if task == "env":
+                out[task] = p11_env(dev, levels, lanes)
+            elif task == "ppo":
+                out[task] = p11_ppo(dev, levels, tree, lanes)
+            elif task == "dqn":
+                out[task] = p11_dqn(dev, levels, lanes)
+            elif task == "spatial":
+                out[task] = p11_spatial(dev, rank, world)
+            elif task == "kernels":
+                out[task] = p11_kernels(dev, levels, lanes)
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_p11_ranks(world, backend, devices, tasks, tree):
+    """Start ``world`` rank processes (the ``spawn`` method) on
+    ``devices`` and return their results in rank order; a rank that fails
+    or outlives P11_TIMEOUT fails the phase, and every rank process is
+    ended before this returns."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=p11_rank, daemon=True,
+                         args=(r, world, port, backend, devices[r], tasks,
+                               tree, results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = time.monotonic() + P11_TIMEOUT
+    try:
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError("phase 11 ranks not done in %d s"
+                                     % P11_TIMEOUT)
+            try:
+                rank, ok, value = results.get(timeout=min(left, 10))
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError("a phase 11 rank died: exit codes "
+                                         "%s" % [p.exitcode for p in procs])
+                continue
+            if not ok:
+                raise AssertionError("phase 11 rank %d failed:\n%s"
+                                     % (rank, value))
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=20)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=20)
+    return [out[r] for r in range(world)]
+
+
+def check_helpers_nccl_world_one(dev, levels, tree, card):
+    """Each helper of ``parallel/mesh.py`` on CUDA tensors in an NCCL group
+    of one rank, against the identity it must give there. Returns the
+    milliseconds of each."""
+    import torch.distributed as dist
+
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.parallel import mesh as M
+
+    M.initialize_distributed(backend="nccl", rank=0, world_size=1,
+                             init_method="tcp://127.0.0.1:%d" % free_port(),
+                             device=dev, timeout=120)
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        ms[name] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the group's backend is %s"
+                                 % dist.get_backend())
+        net = policy(tree, dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for p in net.parameters():
+            p.grad = torch.randn(p.shape, generator=g, device=dev)
+        before = [p.grad.clone() for p in net.parameters()]
+        timed("allreduce_grads", lambda: M.allreduce_grads(net))
+        timed("broadcast_grads", lambda: M.broadcast_grads(net))
+        for p, b in zip(net.parameters(), before):
+            if not torch.equal(p.grad, b):
+                raise AssertionError("a gradient changed at world size 1")
+        pool = pack_levels(levels[:16], device=dev)
+        got = timed("allgather_level_pool",
+                    lambda: M.allgather_level_pool(pool))
+        for f in ("board", "goals", "table_flat", "reset_boards",
+                  "spawn_prob", "exit_locs_valid"):
+            if not torch.equal(getattr(got, f), getattr(pool, f)):
+                raise AssertionError("allgather_level_pool changed %s" % f)
+        if (got.all_goals_static, got.spawner_free) != \
+                (pool.all_goals_static, pool.spawner_free):
+            raise AssertionError("allgather_level_pool changed the flags")
+        ep = {"lane_done": torch.rand((20, 64), generator=g,
+                                      device=dev) < 0.1,
+              "episode_reward": torch.randn((20, 64, 1), generator=g,
+                                            device=dev)}
+        got = timed("gather_episodes", lambda: M.gather_episodes(ep, 1))
+        tree_t = {"a": torch.randn((4096,), generator=g, device=dev)}
+        ref = tree_t["a"].clone()
+        timed("broadcast_tree", lambda: M.broadcast_tree(tree_t))
+        state = g.get_state()
+        timed("sync_generator", lambda: M.sync_generator(g))
+        timed("barrier", M.barrier)
+        if any(not torch.equal(got[k], ep[k]) for k in ep) \
+                or not torch.equal(tree_t["a"], ref) \
+                or not torch.equal(g.get_state(), state):
+            raise AssertionError("a gather or broadcast changed its input")
+    finally:
+        dist.destroy_process_group()
+    log("phase 11 NCCL at world size 1: every helper the identity on CUDA "
+        "tensors; ms %s  [%s]" % (json.dumps(
+            {k: round(v, 3) for k, v in ms.items()}), card))
+    return ms
+
+
+def check_two_ranks(dev, levels, tree, card):
+    """Two ranks on the one card over ``gloo`` at P11_LANES global lanes,
+    against the one-process run: the env, a PPO iteration, a DQN chunk and
+    the row-sharded advance."""
+    t0 = time.perf_counter()
+    ranks = run_p11_ranks(P11_RANKS, "gloo", [dev.index or 0] * P11_RANKS,
+                          ("kernels", "env", "ppo", "dqn", "spatial"), tree)
+    t_ranks = time.perf_counter() - t0
+    from safelife_tpu_torch.parallel.mesh import lane_range
+
+    alone = p11_kernels(dev, levels, lane_range(P11_LANES, 0, P11_RANKS))
+    log("phase 11 kernels at %d lanes a rank (lane offsets, spawns; device "
+        "ms a launch over 200): both ranks at once %s, one process alone %s"
+        "  [%s]"
+        % (P11_LANES // P11_RANKS, json.dumps([r["kernels"] for r in ranks]),
+           json.dumps(alone), card))
+    env_prints, env_board, env_s = p11_env(dev, levels, None)
+    for k, ref in env_prints.items():
+        got = np.concatenate([r["env"][0][k] for r in ranks], axis=1)
+        if not np.array_equal(got, ref):
+            raise AssertionError("phase 11: %d ranks' %s differ from one "
+                                 "process at step %d" % (
+                                     P11_RANKS, k, int(np.argmax(
+                                         (got != ref).any(1)))))
+    if not np.array_equal(np.concatenate([r["env"][1] for r in ranks]),
+                          env_board):
+        raise AssertionError("phase 11: the last boards differ")
+    log("phase 11 env: %d wrapped steps at %d lanes (append-spawn, the "
+        "inaction baseline) over %d ranks on one card (gloo) equal one "
+        "process bit for bit (boards, views, rewards, dones); %.3f s one "
+        "process, %s s the ranks  [%s]"
+        % (P11_ENV_STEPS, P11_LANES, P11_RANKS, env_s,
+           [round(r["env"][2], 3) for r in ranks], card))
+
+    one = p11_ppo(dev, levels, tree, None)
+    ppo = [r["ppo"] for r in ranks]
+    for r in ppo[1:]:
+        if not np.array_equal(r["params"], ppo[0]["params"]):
+            raise AssertionError("phase 11: the ranks' parameters differ")
+    rel = abs(ppo[0]["loss0"] - one["loss0"]) / abs(one["loss0"])
+    if rel > 1e-5:
+        raise AssertionError("phase 11: the rollout's loss %.9g vs one "
+                             "process %.9g (%.2e rel)" % (
+                                 ppo[0]["loss0"], one["loss0"], rel))
+    start = flat_params(policy(tree, dev)).cpu().numpy()
+    update = float(np.linalg.norm(one["params"] - start))
+    dev_norm = float(np.linalg.norm(ppo[0]["params"] - one["params"]))
+    if not dev_norm <= P11_UPDATE_NORM * update:
+        raise AssertionError("phase 11: the ranks' parameters are %.3g from "
+                             "one process's, the update %.3g" % (
+                                 dev_norm, update))
+    if any(r["num_steps"] != one["num_steps"] for r in ppo):
+        raise AssertionError("phase 11: num_steps differ")
+    log("phase 11 PPO: train_iteration at %d lanes (PPOConfig(), 25x25 "
+        "views) over %d ranks (gloo): the rollout's loss %.9g vs one "
+        "process %.9g (%.2e rel), parameters bitwise equal on the ranks, "
+        "%.3e from one process's after 30 Adam steps (the update %.3e, "
+        "%.2e of it); metric loss %.6g vs %.6g; the second iteration %s ms "
+        "(one process %.3f), all-reduces %s a rank, %s ms (gloo: through "
+        "the host); launches a rank %s  [%s]"
+        % (P11_LANES, P11_RANKS, ppo[0]["loss0"], one["loss0"], rel,
+           dev_norm, update, dev_norm / max(update, 1e-30),
+           ppo[0]["loss"], one["loss"], [round(r["ms"], 3) for r in ppo],
+           one["ms"], ppo[0]["reduces"],
+           [round(r["reduce_ms"], 3) for r in ppo],
+           json.dumps(ppo[0]["launches"]), card))
+
+    ref = p11_dqn(dev, levels, None)
+    for r in ranks:
+        d = r["dqn"]
+        if d["idx"] != ref["idx"] or any(
+                not np.array_equal(d["replay"][k], v)
+                for k, v in ref["replay"].items()):
+            raise AssertionError("phase 11: a rank's replay differs from "
+                                 "the one-process replay")
+        if not np.array_equal(d["params"], ranks[0]["dqn"]["params"]):
+            raise AssertionError("phase 11: the ranks' Q parameters differ")
+    dqn_abs = float(np.abs(ranks[0]["dqn"]["params"] - ref["params"]).max())
+    if not dqn_abs <= P11_DQN_MAX_ABS:
+        raise AssertionError("phase 11: the ranks' Q parameters are %.3g "
+                             "from one process's" % dqn_abs)
+    log("phase 11 DQN: a %d-unit chunk at %d lanes, DQNConfig() (replay "
+        "100,000, warm %s): every rank's replay equals the one-process "
+        "replay (%d pushes) row for row, Q parameters bitwise equal on the "
+        "ranks (%.3e from one process's at most); chunk %s ms (one process "
+        "%.3f)  [%s]"
+        % (P11_DQN_UNITS, P11_LANES, ref["warm"], ref["idx"], dqn_abs,
+           [round(r["dqn"]["ms"], 3) for r in ranks], ref["ms"], card))
+
+    whole = p11_spatial(dev, 0, None)
+    got = np.concatenate([r["spatial"]["rows"] for r in ranks])
+    if not np.array_equal(got, whole["rows"]):
+        raise AssertionError("phase 11: the row-sharded advance differs "
+                             "from K2 on the whole board")
+    if (whole["rows"] == spatial_inputs()[0]).all():
+        raise AssertionError("phase 11: the board never changed")
+    log("phase 11 spatial: %d stochastic steps of a %dx%d board with "
+        "spawners over %d ranks (K2 on %dx%d halo slabs) equal %d K2 steps "
+        "of the whole board bit for bit; %s ms (whole %.3f); launches a "
+        "rank %s, whole %s  [%s]"
+        % (SPATIAL_STEPS, SPATIAL_BOARD[0], SPATIAL_BOARD[1], P11_RANKS,
+           SPATIAL_BOARD[0] // P11_RANKS + 2, SPATIAL_BOARD[1],
+           SPATIAL_STEPS, [round(r["spatial"]["ms"], 3) for r in ranks],
+           whole["ms"], json.dumps(ranks[0]["spatial"]["launches"]),
+           json.dumps(whole["launches"]), card))
+    return {"ranks_s": t_ranks, "ppo": ppo, "one": one}
+
+
+def run_torchrun_cli(card):
+    """The CLI under ``torchrun --nproc-per-node 1`` (NCCL at world size
+    1): train TORCHRUN_STEPS[0] steps at 64 lanes on a pool of
+    TORCHRUN_POOL levels, then resume to TORCHRUN_STEPS[1]; each report
+    shows ``pcheck`` and the resume restores the checkpoint."""
+    import os
+
+    data_dir = "runs/chip-smoke-torchrun-%d" % os.getpid()
+    out = {}
+    for steps in TORCHRUN_STEPS:
+        t, start = time.perf_counter(), time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "safelife_tpu_torch", "train",
+             data_dir, "-e", TRAINER_TASK, "--batch", str(CLI_LANES),
+             "--steps", str(steps), "--seed", "1", "--skip-benchmark",
+             "-x", json.dumps({"env.pool_size": TORCHRUN_POOL})],
+            capture_output=True, text=True, timeout=P11_TIMEOUT)
+        seconds = time.perf_counter() - t
+        text = proc.stdout + proc.stderr
+        if proc.returncode:
+            raise AssertionError("torchrun train to %d failed (exit %d):\n%s"
+                                 % (steps, proc.returncode, text[-4000:]))
+        pchecks = re.findall(r"n=(\d+):.*pcheck=(\S+)", text)
+        if not pchecks or int(pchecks[-1][0]) != steps:
+            raise AssertionError("torchrun train to %d: reports %s"
+                                 % (steps, pchecks))
+        if steps != TORCHRUN_STEPS[0] and "restored checkpoint at step %d" \
+                % TORCHRUN_STEPS[0] not in text:
+            raise AssertionError("torchrun resume did not restore step %d"
+                                 % TORCHRUN_STEPS[0])
+        if "backend nccl" not in text:
+            raise AssertionError("torchrun train to %d did not run under "
+                                 "NCCL:\n%s" % (steps, text[-2000:]))
+        # The run's own log lines carry their times (whole seconds): from
+        # its "backend nccl" line, after the group started, to its last.
+        with open(os.path.join(data_dir, "training.log")) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if re.match(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d", ln)]
+        begin = max(i for i, ln in enumerate(lines) if "backend nccl" in ln)
+        first, last = (time.mktime(time.strptime(ln[:19],
+                                                 "%Y-%m-%d %H:%M:%S"))
+                       for ln in (lines[begin], lines[-1]))
+        out[steps] = {"seconds": seconds, "pcheck": pchecks[-1][1],
+                      "logged": last - first, "start": first - start}
+    log("phase 11 CLI: torchrun --nproc-per-node 1 (NCCL) train %s at %d "
+        "lanes, a pool of %d levels: %s s (launch to the group's start %s "
+        "s, from there to the last log line %s s), resume restored; "
+        "pchecks %s  [%s]"
+        % (list(TORCHRUN_STEPS), CLI_LANES, TORCHRUN_POOL,
+           [round(v["seconds"], 3) for v in out.values()],
+           [round(v["start"], 1) for v in out.values()],
+           [v["logged"] for v in out.values()],
+           [v["pcheck"] for v in out.values()], card))
+    return out
+
+
+def run_phase_11(dev, tree, card):
+    """Phase 11: the multi-process helpers under NCCL at world size 1, two
+    ranks on the one card over gloo against one process, the CLI through
+    torchrun, and NCCL over two cards where there are two."""
+    from safelife_tpu_torch.io.levels import load_levels
+
+    t0 = time.perf_counter()
+    levels = load_levels(TRAIN_LEVELS)
+    out = {"helpers": check_helpers_nccl_world_one(dev, levels, tree, card)}
+    out["two_ranks"] = check_two_ranks(dev, levels, tree, card)
+    out["cli"] = run_torchrun_cli(card)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        ranks = run_p11_ranks(2, "nccl", [0, 1], ("ppo",), tree)
+        if not np.array_equal(ranks[0]["ppo"]["params"],
+                              ranks[1]["ppo"]["params"]):
+            raise AssertionError("phase 11: NCCL ranks' parameters differ")
+        gloo = out["two_ranks"]["ppo"]
+        out["nccl_two_ranks"] = [r["ppo"]["ms"] for r in ranks]
+        log("phase 11 NCCL over 2 cards: train_iteration %s ms, all-reduces "
+            "%s ms (gloo on one card: %s, %s)  [%s]"
+            % ([round(r["ppo"]["ms"], 3) for r in ranks],
+               [round(r["ppo"]["reduce_ms"], 3) for r in ranks],
+               [round(r["ms"], 3) for r in gloo],
+               [round(r["reduce_ms"], 3) for r in gloo], card))
+    else:
+        out["nccl_two_ranks"] = "not run: %d card" % n
+    log(json.dumps({"nccl_two_ranks": out["nccl_two_ranks"]}))
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 11: %.1f s" % out["seconds"])
+    return out
+
+
 KERNELS = {
     "fused_actions_advance": ("safelife_tpu_torch/ops/csrc/physics.cu",
                               "safelife_tpu/ops/physics.py:296",
@@ -3473,6 +4159,7 @@ def main():
     errs = {}
     check_physics(dev, errs, np.stack([lv.board for lv in prune]),
                   np.stack([lv.agent_locs for lv in prune]).astype(np.int32))
+    check_offsets(dev, errs)
     check_obs(dev, errs)
     missing = sorted(set(KERNELS) - set(errs))
     if missing:
@@ -3565,6 +4252,9 @@ def main():
     # fell back to CUDA events, the profiler having kept too few of their
     # launches (the device annealer captures CUDA graphs in phase 10).
     modes = run_phase_10(dev, spawn, prune, tree, card)
+
+    # Phase 11
+    ranked = run_phase_11(dev, tree, card)
     log("main path per step: %s" % json.dumps(
         {k: v / (2 * STEPS) for k, v in launches.items()}))
     log("trainer (phase 7): start-up pool %s s at %s lanes; CLI run at %d "
@@ -3622,6 +4312,8 @@ def main():
                      for n in PROCGEN_BATCHES), cli10["procgen"]["rate64"],
            pg["host0"], pg["host4"], cli10["procgen"]["startup"],
            modes["oracle_us"], card))
+    log("phase 11 (multi-process) %.1f s; NCCL over two cards: %s  [%s]"
+        % (ranked["seconds"], ranked["nccl_two_ranks"], card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []

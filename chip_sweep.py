@@ -2,10 +2,10 @@
 call, on one CUDA card.
 
     python3 chip_sweep.py [physics] [views] [host] [learner] [learner-4096]
-                          [procgen]
+                          [procgen] [ranks]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all six parts). It imports torch and the port only, prints
+argument runs all seven parts). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -38,6 +38,13 @@ prune-dynamic boards:
   whose chains never converge: milliseconds an iteration run eagerly and
   replayed as the CUDA graph ``_Chains.run`` captures, and the capture's
   seconds.
+* ``ranks``: what ``chip_smoke.py``'s phase 11 bounds (``P11_UPDATE_NORM``,
+  ``P11_DQN_MAX_ABS``): two ``gloo`` ranks on the card against one
+  process, the PPO iteration's parameters (a share of the update's norm)
+  and the DQN chunk's (max abs), twice as they are and once each with a
+  fault planted in the rank processes at run time: PPO's sample index
+  shifted one lane, the rank's own weight in the sharded loss in place of
+  the global one, DQN's sample index off by one, DQN's loss doubled.
 """
 
 import contextlib
@@ -240,6 +247,106 @@ def learner_spread(dev, card, lanes, n_batches):
         ppo.train_on_batch(run["pcfg"], run["ps"], batch, run["gen"])
 
 
+def plant_fault(fault):
+    """Patch ``fault`` into this process's training modules (a rank
+    process's, never the one-process reference's)."""
+    from safelife_tpu_torch.parallel import mesh as M
+    from safelife_tpu_torch.training import dqn as D, ppo as PPO
+
+    if fault == "ppo_index":
+        real_shard = PPO.sample_shard
+
+        def shifted(steps, agents, lanes, device):
+            s = real_shard(steps, agents, lanes, device)
+            return PPO.SampleShard((s.index + agents) % s.total, s.total)
+        PPO.sample_shard = shifted
+    elif fault == "ppo_local_wsum":
+        def local_wsum(cfg, model, mb):
+            w = mb["weight"]
+            terms = PPO._loss_terms(cfg, model, mb["obs"], mb["actions"],
+                                    mb["action_prob"], mb["values"],
+                                    mb["returns"], mb["advantages"])
+            sums = torch.stack([torch.sum(x * w) for x in terms])
+            tot = M.all_reduce_sum(torch.cat([sums.detach(),
+                                              w.sum().reshape(1)]))
+            return PPO._combine(cfg, *(
+                tot[:3] / torch.clamp(tot[3], min=1.0)
+                + (sums - sums.detach()) / torch.clamp(w.sum(), min=1.0)))
+        PPO._sharded_loss = local_wsum
+    elif fault == "dqn_index":
+        real_opt = D.optimize
+
+        def off_by_one(cfg, dstate, generator, n_env_steps, sample_idx=None,
+                       lanes=None):
+            size = max(dstate.replay.size(), 1)
+            idx = torch.randint(0, size, (cfg.batch_size,),
+                                generator=generator,
+                                device=dstate.replay.obs.device)
+            return real_opt(cfg, dstate, generator, n_env_steps,
+                            (idx + 1) % size, lanes)
+        D.optimize = off_by_one
+    elif fault == "dqn_scale":
+        real_loss = D.td_loss
+
+        def doubled(*args):
+            loss, metrics = real_loss(*args)
+            return 2 * loss, metrics
+        D.td_loss = doubled
+
+
+def fault_rank(fault, *args):
+    plant_fault(fault)
+    return cs.p11_rank(*args)
+
+
+def rank_readings(dev, card):
+    """Two ``gloo`` ranks' learner against one process (``cs.p11_ppo``,
+    ``cs.p11_dqn`` at ``cs.P11_LANES``), sound and with planted faults."""
+    import functools
+
+    import numpy as np
+
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+
+    tree = cs.random_policy_tree(np.random.default_rng(0),
+                                 len(TRAINING_CHANNELS), cs.VIEW)
+    levels = load_levels(cs.TRAIN_LEVELS)
+    one = cs.p11_ppo(dev, levels, tree, None)
+    ref = cs.p11_dqn(dev, levels, None)
+    start = cs.flat_params(cs.policy(tree, dev)).cpu().numpy()
+    update = float(np.linalg.norm(one["params"] - start))
+    real_rank = cs.p11_rank
+    for fault, tasks in ((None, ("ppo", "dqn")), (None, ("ppo", "dqn")),
+                         ("ppo_index", ("ppo",)),
+                         ("ppo_local_wsum", ("ppo",)),
+                         ("dqn_index", ("dqn",)), ("dqn_scale", ("dqn",))):
+        # The spawned ranks run the patched target, this process the real.
+        cs.p11_rank = functools.partial(fault_rank, fault)
+        try:
+            ranks = cs.run_p11_ranks(cs.P11_RANKS, "gloo",
+                                     [dev.index or 0] * cs.P11_RANKS, tasks,
+                                     tree)
+        finally:
+            cs.p11_rank = real_rank
+        r = {"fault": fault}
+        if "ppo" in tasks:
+            p = [x["ppo"]["params"] for x in ranks]
+            r["ppo_ranks_equal"] = all(np.array_equal(p[0], q) for q in p)
+            r["ppo_update_share"] = float(
+                np.linalg.norm(p[0] - one["params"]) / update)
+        if "dqn" in tasks:
+            q = [x["dqn"]["params"] for x in ranks]
+            r["dqn_ranks_equal"] = all(np.array_equal(q[0], x) for x in q)
+            r["dqn_max_abs"] = float(np.abs(q[0] - ref["params"]).max())
+            r["dqn_replay_equal"] = all(
+                np.array_equal(ranks[0]["dqn"]["replay"][k], v)
+                for k, v in ref["replay"].items())
+        print("ranks against one process: %s (bounds %g of the update's "
+              "norm %.6g, %g max abs)  [%s]"
+              % (json.dumps(r), cs.P11_UPDATE_NORM, update,
+                 cs.P11_DQN_MAX_ABS, card), flush=True)
+
+
 def anneal_iteration_cost(dev, card, blocks=10):
     """The device annealer's iteration at 8, 64 and 256 chains: a 16x16
     writable square in a 26x26 board and a fill floor of 2, so that no
@@ -303,7 +410,7 @@ def main():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
     parts = sys.argv[1:] or ["physics", "views", "host", "learner",
-                             "learner-4096", "procgen"]
+                             "learner-4096", "procgen", "ranks"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -329,6 +436,8 @@ def main():
         learner_spread(dev, card, 4096, 6)
     if "procgen" in parts:
         anneal_iteration_cost(dev, card)
+    if "ranks" in parts:
+        rank_readings(dev, card)
     return 0
 
 

@@ -10,10 +10,15 @@ verbs
 * ``render`` — render level files to png/gif/mp4.
 
 ``train`` and ``play`` take ``--device`` (``cuda`` unless ``cpu`` is asked
-for); ``_confirm_data_dir`` (``:124-159``), ``cmd_train`` (``:162-265``)
-for one process, ``_iter_levels``, ``cmd_print``, ``cmd_new`` and
-``cmd_render`` (``:268-312``). Not ported: ``bench`` (JAX's ``bench.py``;
-the port's benchmark is for a later change) and ``--wandb`` (ROADMAP.md).
+for); ``_confirm_data_dir`` (``:124-159``), ``cmd_train`` (``:162-265``),
+``_iter_levels``, ``cmd_print``, ``cmd_new`` and ``cmd_render``
+(``:268-312``). Not ported: ``bench`` (JAX's ``bench.py``; the port's
+benchmark is for a later change) and ``--wandb`` (ROADMAP.md).
+
+Multi-process training replaces JAX's ``scripts/launch_multihost.py``
+with ``torchrun``: ``torchrun --nproc-per-node N -m safelife_tpu_torch
+train DIR ...`` runs N ranks, one card each (``cuda:LOCAL_RANK``; the CPU
+with ``--device cpu``), ``--batch`` being the global lane count.
 """
 
 import argparse
@@ -148,20 +153,49 @@ def cmd_train(args):
     """Train (or benchmark, or inspect) on ``args.device``. Returns a
     namespace of the run's ``bundle``, the ``model``, the learner's
     ``state`` (PPO's or DQN's; None unless trained) and the final
-    benchmark's ``summary`` (None when skipped)."""
+    benchmark's ``summary`` (None when skipped).
+
+    Under ``torchrun`` every rank joins the process group first (``nccl``
+    on the card, ``gloo`` on the CPU); rank 0 alone confirms or creates
+    the data directory, writes the logs and runs the final benchmark, and
+    the other ranks wait for it (JAX's ``__main__.py:165-190``)."""
     import torch
 
+    from .parallel import mesh as M
+    from .utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    joined = not torch.distributed.is_initialized()
+    rank, world = M.initialize_distributed(device=dev)
+    joined = joined and torch.distributed.is_initialized()
+    try:
+        if dev.index is not None:  # a rank's own card
+            torch.cuda.set_device(dev)
+        return _train_ranked(args, dev, rank, world)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train_ranked(args, dev, rank, world):
+    import torch
+
+    from .parallel import mesh as M
     from .training import train as T
     from .training.env_factory import build_environments
     from .training.global_config import config
     from .training.logging_setup import setup_logging
-    from .utils.device import resolve_device
 
-    dev = resolve_device(args.device)
-    if args.data_dir and args.run_type == "train":
+    if args.data_dir and args.run_type == "train" and rank == 0:
         _confirm_data_dir(args.data_dir)
+    M.barrier()
 
-    setup_logging(args.data_dir)
+    setup_logging(args.data_dir if rank == 0 else None,
+                  rank=rank if world > 1 else None)
+    if torch.distributed.is_initialized():
+        logging.getLogger("safelife_tpu_torch.cli").info(
+            "rank %d of %d, backend %s, device %s", rank, world,
+            torch.distributed.get_backend(), dev)
     if args.extra_params:
         config.update(json.loads(args.extra_params))
     config["env_type"] = args.env_type
@@ -185,8 +219,10 @@ def cmd_train(args):
 
     bundle = None
     try:
-        bundle = build_environments(config, data_dir=args.data_dir,
-                                    num_envs=args.batch, device=dev)
+        # The training logger writes rank 0's files only.
+        bundle = build_environments(
+            config, data_dir=args.data_dir if rank == 0 else None,
+            num_envs=args.batch, device=dev)
         out = types.SimpleNamespace(bundle=bundle, model=None, state=None,
                                     summary=None)
         if args.run_type == "inspect":
@@ -213,10 +249,12 @@ def cmd_train(args):
                 seed=args.seed or 0, data_dir=args.data_dir, device=dev)
         if not args.skip_benchmark and (bundle.benchmark_levels
                                         or bundle.validation_levels):
-            out.summary = T.run_benchmark(
-                out.model, bundle, args.data_dir,
-                torch.Generator(device=dev).manual_seed(args.seed or 0),
-                num_episodes=args.benchmark_episodes, device=dev)
+            if rank == 0:
+                out.summary = T.run_benchmark(
+                    out.model, bundle, args.data_dir,
+                    torch.Generator(device=dev).manual_seed(args.seed or 0),
+                    num_episodes=args.benchmark_episodes, device=dev)
+            M.barrier()
         config.check_for_unused()
         return out
     finally:

@@ -18,6 +18,16 @@ On CUDA the physics phase is always kernel K1 (and K2 for the goals) and
 the views are always kernel K3; on the CPU the same wrappers run their
 plain versions. Randomness comes from the caller's ``torch.Generator``,
 which must live on the pool's device.
+
+Sharded lanes (:mod:`..parallel.mesh`): ``reset``, ``step_core``, ``step``
+and ``advance_batch`` take the rank's ``lanes`` (a ``LaneRange``; its
+``start`` is the rank's lane offset) and then hold only those lanes of the
+global batch. Per-lane draws (the reset level picks) are made at the
+global shape and cut to the rank's lanes, the seed words are drawn as in
+one process, and K1 and K2 draw their coins at the global lanes
+(``lane_offset``), so a rank steps its lanes as the one-process run steps
+the same lanes of the global batch. K3 reads only the rank's own lanes and
+needs no offset (JAX's ``recenter_views_sharded``).
 """
 
 import dataclasses
@@ -26,6 +36,7 @@ import torch
 
 from .. import ops
 from ..core import cells as C, scoring
+from ..parallel.mesh import draw_global
 from ..core.scoring import POINTS_ON_LEVEL_EXIT
 from .state import EnvState, lane_level
 
@@ -106,9 +117,12 @@ def reset_batch(cfg, pool, idx, min_perf_fraction=1.0):
     )
 
 
-def reset(cfg, pool, batch_size, min_perf_fraction=1.0):
-    """Lane i starts on pool level ``i mod L``. Returns (state, obs)."""
-    idx = torch.arange(batch_size, device=pool.device) % pool.num_levels
+def reset(cfg, pool, batch_size, min_perf_fraction=1.0, lanes=None):
+    """Lane i starts on pool level ``i mod L``. With ``lanes`` the state
+    holds lanes ``lanes.start``..``lanes.stop`` of a global batch of
+    ``batch_size``. Returns (state, obs)."""
+    first, stop = (0, batch_size) if lanes is None else lanes[:2]
+    idx = torch.arange(first, stop, device=pool.device) % pool.num_levels
     state = reset_batch(cfg, pool, idx, min_perf_fraction)
     return state, _batch_obs(cfg, pool, state)
 
@@ -123,9 +137,10 @@ def seed_words(generator, n, device):
                          generator=generator, device=device)
 
 
-def _physics_batch(cfg, lv, state, actions, generator):
+def _physics_batch(cfg, lv, state, actions, generator, lane_offset=0):
     """Actions, the CA advance of the board (and of non-static goals), and
-    the agents' post-advance cells: K1, and K2 for the goals.
+    the agents' post-advance cells: K1, and K2 for the goals, their coins
+    drawn at global lane ``lane_offset`` + lane.
 
     Returns (board, goals, agent_locs, cells).
     """
@@ -142,13 +157,14 @@ def _physics_batch(cfg, lv, state, actions, generator):
     board, agent_locs, cells = ops.fused_actions_advance(
         state.board.reshape(b, h * w).contiguous(),
         state.agent_locs.contiguous(), actions, lv.spawn_prob, seed[0],
-        h=h, w=w, stochastic=stochastic)
+        h=h, w=w, stochastic=stochastic, lane_offset=lane_offset)
     board = board.reshape(b, h, w)
     goals = state.goals
     if evolve_goals:
         adv = ops.advance(
             state.goals.reshape(b, h * w).contiguous(), lv.spawn_prob,
-            seed[1], h=h, w=w, stochastic=stochastic).reshape(b, h, w)
+            seed[1], h=h, w=w, stochastic=stochastic,
+            lane_offset=lane_offset).reshape(b, h, w)
         goals = torch.where(lv.goals_static[:, None, None], state.goals, adv)
     return board, goals, agent_locs, cells
 
@@ -197,9 +213,11 @@ def _finish(cfg, s, lv, board, goals, agent_locs, cells):
     return s, reward, done, info
 
 
-def advance_batch(boards, spawn_prob, generator, stochastic=True):
-    """Batched plain CA advance (no agents) through K2. boards
-    int32[B, H, W]; spawn_prob float32[B]. With ``stochastic=False``
+def advance_batch(boards, spawn_prob, generator, stochastic=True,
+                  lane_offset=0):
+    """Batched plain CA advance (no agents) through K2, board i drawing its
+    coins at global lane ``lane_offset + i``. boards int32[B, H, W];
+    spawn_prob float32[B]. With ``stochastic=False``
     spawners never fire, as under the JAX ``EnvConfig(stochastic=False)``
     that its inaction-baseline caller passes
     (``safelife_tpu/env/wrappers.py:202-207``)."""
@@ -209,17 +227,30 @@ def advance_batch(boards, spawn_prob, generator, stochastic=True):
     else:
         seed = torch.zeros((2,), dtype=torch.int32, device=boards.device)
     return ops.advance(boards.reshape(b, h * w).contiguous(), spawn_prob,
-                       seed, h=h, w=w,
-                       stochastic=stochastic).reshape(b, h, w)
+                       seed, h=h, w=w, stochastic=stochastic,
+                       lane_offset=lane_offset).reshape(b, h, w)
 
 
-def step_core(cfg, pool, state, actions, generator):
+def lane_offset(lanes):
+    """The global index of a rank's first lane (0 in one process)."""
+    return 0 if lanes is None else lanes.start
+
+
+def reset_picks(shape, generator, device, lanes=None):
+    """The auto-reset draws of every lane (int64, before ``mod L``), drawn
+    at the global shape and cut to ``lanes``."""
+    return draw_global(
+        lambda s: torch.randint(0, _INT32_MAX, s, generator=generator,
+                                device=device), shape, lanes)
+
+
+def step_core(cfg, pool, state, actions, generator, lanes=None):
     """Batched env step without auto-reset or observations.
     Returns (state, reward, done, info)."""
     lv = lane_level(pool, state.level_idx, state.min_perf_fraction)
     actions = torch.where(lv.agent_mask, actions.to(torch.int32), 0)
     board, goals, agent_locs, cells = _physics_batch(
-        cfg, lv, state, actions.contiguous(), generator)
+        cfg, lv, state, actions.contiguous(), generator, lane_offset(lanes))
     return _finish(cfg, state, lv, board, goals, agent_locs, cells)
 
 
@@ -272,17 +303,17 @@ def all_episode_records(pool, init_boards, state, info):
     }
 
 
-def step(cfg, pool, state, actions, generator):
+def step(cfg, pool, state, actions, generator, lanes=None):
     """Batched environment step with auto-reset.
 
     actions int32[B, A]. Returns (state, obs, reward float32[B, A],
     done bool[B, A], info).
     """
     state, reward, done, info = step_core(cfg, pool, state, actions,
-                                          generator)
+                                          generator, lanes)
     if cfg.auto_reset:
-        idx = torch.randint(0, _INT32_MAX, state.level_idx.shape,
-                            generator=generator, device=pool.device)
+        idx = reset_picks(state.level_idx.shape, generator, pool.device,
+                          lanes)
         mpf = state.min_perf_fraction
         state = merge_lane_reset(
             info["lane_done"], idx % pool.num_levels,

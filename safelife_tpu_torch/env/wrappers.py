@@ -21,7 +21,10 @@ over the whole batch as ``_shape``), ``_fresh_wrapped`` (``:170-178``) and
   each fresh level's ``min_performance``.
 
 JAX shapes one lane under ``vmap``; here every function takes the batch
-axis B, with gathers and scatters on it and no loop over lanes.
+axis B, with gathers and scatters on it and no loop over lanes. With a
+rank's ``lanes`` (:mod:`..parallel.mesh`) ``reset`` and ``step`` hold those
+lanes of the global batch, as :mod:`.env`'s do; the inaction baseline's
+K2 draws its coins at the global lanes.
 """
 
 import dataclasses
@@ -82,11 +85,12 @@ def _wrap(wcfg, env_state):
 
 
 def reset(cfg, wcfg, pool, batch_size, min_perf_fraction=1.0,
-          device="cuda"):
+          device="cuda", lanes=None):
     """Lane i starts on pool level ``i mod L``; ``pool`` must live on
-    ``device``. Returns (WrappedState, obs)."""
+    ``device``. With ``lanes`` the state holds those lanes of a global
+    batch of ``batch_size``. Returns (WrappedState, obs)."""
     require_device(device, pool.device, "the level pool")
-    state, obs = E.reset(cfg, pool, batch_size, min_perf_fraction)
+    state, obs = E.reset(cfg, pool, batch_size, min_perf_fraction, lanes)
     return _wrap(wcfg, state), obs
 
 
@@ -164,7 +168,7 @@ def _fresh_wrapped(cfg, wcfg, pool, idx, min_perf_fraction):
 
 
 def step(cfg, wcfg, pool, state, actions, generator, se_penalty_coef=0.0,
-         min_perf_fraction=1.0):
+         min_perf_fraction=1.0, lanes=None):
     """Batched wrapped step. actions int [B, A]; ``generator`` lives on the
     pool's device. Returns (state, obs, shaped reward float32 [B, A],
     done bool [B, A], info)."""
@@ -172,7 +176,7 @@ def step(cfg, wcfg, pool, state, actions, generator, se_penalty_coef=0.0,
     # pre-reset state, then lanes and wrapper fields reset together.
     core_cfg = dataclasses.replace(cfg, auto_reset=False)
     env2, reward, done, info = E.step_core(core_cfg, pool, state.env,
-                                           actions, generator)
+                                           actions, generator, lanes)
     record = (E.all_episode_records if wcfg.exhaustive_se
               else E.sample_episode_record)
     info["ep_sample"] = record(pool, state.episode_start_board, env2, info)
@@ -187,7 +191,8 @@ def step(cfg, wcfg, pool, state, actions, generator, se_penalty_coef=0.0,
             baseline = E.advance_batch(
                 state.baseline_board,
                 pool.spawn_prob.index_select(0, env2.level_idx), generator,
-                stochastic=not pool.spawner_free)
+                stochastic=not pool.spawner_free,
+                lane_offset=E.lane_offset(lanes))
         lv2 = lane_level(pool, env2.level_idx, env2.min_perf_fraction)
         reward, ring, count, last_se = _shape(
             wcfg, ring, count, last_se, env2, lv2, reward, done,
@@ -198,8 +203,8 @@ def step(cfg, wcfg, pool, state, actions, generator, se_penalty_coef=0.0,
                          episode_start_board=state.episode_start_board)
     if cfg.auto_reset:
         # Fresh lanes take the schedule's fraction, not the lane's own.
-        idx = torch.randint(0, E._INT32_MAX, env2.level_idx.shape,
-                            generator=generator, device=pool.device)
+        idx = E.reset_picks(env2.level_idx.shape, generator, pool.device,
+                            lanes)
         state = E.merge_lane_reset(
             info["lane_done"], idx % pool.num_levels,
             lambda r: _fresh_wrapped(cfg, wcfg, pool, r, min_perf_fraction),

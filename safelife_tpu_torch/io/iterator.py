@@ -1,6 +1,6 @@
 """Level supply: the level iterator, and the training pool it refreshes.
 
-Port of ``safelife_tpu/io/iterator.py`` for one process:
+Port of ``safelife_tpu/io/iterator.py``:
 ``_load_param_file`` (``:28-49``), ``load_files`` (``:52-66``),
 ``_level_from_data`` (``:69-82``), ``_init_worker`` (``:85-97``),
 ``SafeLifeLevelIterator`` (``:100-298``, with its ``device_batch`` path
@@ -20,6 +20,14 @@ the JAX package's levels byte for byte, with or without workers. With
 ``device_batch`` N the iterator instead generates N levels at a time with
 the device annealer (:mod:`..procgen.batched`) on its ``device``, without
 workers; those levels match the JAX package's in distribution.
+
+In a multi-process run (:mod:`..parallel.mesh`) every rank generates its
+own pool from its own level stream, and the manager's ``pool`` is the
+concatenation of all of them, the same on every rank (JAX's
+``iterator.py:327-364, :466-538, :594-702``): the ranks agree on the agent
+and exit padding first, the static flags are ANDed, slot metadata and
+the busy slots are gathered, and every refresh gathers the pool again.
+Each of these collectives runs on every rank, in the same order.
 """
 
 import dataclasses
@@ -36,6 +44,7 @@ import torch
 from ..core import cells as C
 from ..env.state import (LevelBatch, goals_are_static, level_metadata,
                          pack_levels, slot_metadata)
+from ..parallel import mesh as M
 from ..utils.device import resolve_device
 from ..utils.rng import set_rng
 from . import levels as L
@@ -307,6 +316,10 @@ class LevelPoolManager:
     iterations :meth:`refresh` swaps newly generated levels into free slots
     (round-robin), keeping the levels diverse without waiting on the
     generator.
+
+    In a multi-process run the rank's ``pool_size`` levels fill its slice
+    ``[rank * pool_size, (rank + 1) * pool_size)`` of the gathered ``pool``,
+    and the rank refreshes only the slots of its slice.
     """
 
     def __init__(self, iterator, pool_size=64, pad_agents=None,
@@ -320,8 +333,20 @@ class LevelPoolManager:
         self._starved = 0
         self._restored_meta = None
         self._meta = None  # the live per-slot metadata (level_meta)
-        self.pool = pack_levels(levels, pad_agents, pad_exits,
-                                device=self.device)
+        self._multi = M.process_count() > 1
+        self._local_pool = None  # the rank's slice (multi-process)
+        if not self._multi:
+            self.pool = pack_levels(levels, pad_agents, pad_exits,
+                                    device=self.device)
+            return
+        # The padding must agree before the pools can be gathered.
+        agents = max([pad_agents or 1] + [lv.num_agents for lv in levels])
+        exits = max([pad_exits or 1] + [_num_exits(lv) for lv in levels])
+        pads = torch.stack(M.all_gather(torch.tensor(
+            [agents, exits], device=self.device))).max(0).values.tolist()
+        self._local_pool = pack_levels(levels, pads[0], pads[1],
+                                       device=self.device)
+        self.pool = M.allgather_level_pool(self._local_pool)
 
     def close(self):
         """Shut down the iterator's worker processes, if it has any."""
@@ -348,14 +373,15 @@ class LevelPoolManager:
         fields = {k: torch.as_tensor(v).to(self.device)
                   for k, v in arrays.items() if k not in _FLAGS}
         b, g = fields["board"], fields["goals"]
-        if b.shape[0] != len(self._host_levels) \
+        n = len(self._host_levels)
+        expect = n * M.process_count()
+        if b.shape[0] != expect \
                 or tuple(b.shape[-2:]) != self.pool.board_shape:
             raise ValueError(
                 "checkpointed level pool is %s but this run built %s "
-                "(pool_size or board size changed); resume with matching "
-                "settings or start a fresh data_dir"
-                % (tuple(b.shape), (len(self._host_levels),)
-                   + self.pool.board_shape))
+                "(pool_size, board size or process count changed); resume "
+                "with matching settings or start a fresh data_dir"
+                % (tuple(b.shape), (expect,) + self.pool.board_shape))
         packed = LevelBatch(
             **fields,
             all_goals_static=bool(fields["goals_static"].all()),
@@ -366,6 +392,12 @@ class LevelPoolManager:
         if self._meta is not None:
             self._meta.update(self._restored_meta)
         self.pool = packed
+        if self._multi:
+            off = M.process_index() * n
+            self._local_pool = LevelBatch(
+                **{k: v[off:off + n].clone() for k, v in fields.items()},
+                all_goals_static=packed.all_goals_static,
+                spawner_free=packed.spawner_free)
         return self.pool
 
     def level_meta(self):
@@ -373,7 +405,15 @@ class LevelPoolManager:
         manager's own: :meth:`refresh` updates the entries of the slots it
         swaps, so a holder always sees the level now in each slot."""
         if self._meta is None:
-            self._meta = level_metadata(self._host_levels, self.pool)
+            if self._multi:
+                # Every rank's slots, in rank order (a collective).
+                local = level_metadata(self._host_levels, self._local_pool)
+                parts = [None] * M.process_count()
+                torch.distributed.all_gather_object(
+                    parts, [local[i] for i in range(len(local))])
+                self._meta = dict(enumerate(m for p in parts for m in p))
+            else:
+                self._meta = level_metadata(self._host_levels, self.pool)
             if self._restored_meta:
                 self._meta.update(self._restored_meta)
         return self._meta
@@ -383,7 +423,9 @@ class LevelPoolManager:
         Returns how many were swapped in.
 
         ``in_use`` holds the pool slots that live lanes reference (an
-        ``EnvState.level_idx``, say). Those slots are NEVER overwritten:
+        ``EnvState.level_idx``, say; in a multi-process run the rank's own
+        lanes', the busy slots being ORed over the ranks). Those slots are
+        NEVER overwritten:
         every env step gathers a lane's points table, exits and required
         points by its slot, so a swap under a running episode would score
         the rest of it against another level. Levels with no free slot wait
@@ -420,11 +462,18 @@ class LevelPoolManager:
         if len(self._pending) > cap:
             self._pending = self._pending[-cap:]
 
-        busy = np.zeros(n_slots, bool)
+        world = M.process_count()
+        off = M.process_index() * n_slots
+        busy = np.zeros(n_slots * world, bool)
         if in_use is not None:
             if isinstance(in_use, torch.Tensor):
                 in_use = in_use.cpu().numpy()
             busy[np.asarray(in_use, np.int64)] = True
+        if self._multi:
+            # Lanes on any rank may be on this rank's slots. Every rank
+            # makes this collective, pending levels or not.
+            busy = M.all_reduce_sum(torch.as_tensor(
+                busy, dtype=torch.int32, device=self.device)).cpu().numpy() > 0
 
         # Slots round-robin from the last one filled, skipping busy ones.
         slots = []
@@ -432,7 +481,7 @@ class LevelPoolManager:
         for _ in range(n_slots):
             if len(slots) >= len(self._pending):
                 break
-            if not busy[probe]:
+            if not busy[off + probe]:
                 slots.append(probe)
             probe = (probe + 1) % n_slots
         if self._pending and not slots:
@@ -447,23 +496,35 @@ class LevelPoolManager:
             self._starved = 0
         kept = self._pending[:len(slots)]
         self._pending = self._pending[len(slots):]
-        if not kept:
-            return 0
-        self._slot = (slots[-1] + 1) % n_slots
-        for lv, s in zip(kept, slots):
-            self._host_levels[s] = lv
-            if self._restored_meta:
-                self._restored_meta.pop(s, None)
-        # The flags of ``fresh`` are its own; _swap_rows leaves the pool's.
-        fresh = pack_levels(kept, self.pool.num_agents,
-                            self.pool.exit_locs.shape[-2], device=self.device)
-        _swap_rows(self.pool, fresh,
-                   torch.as_tensor(slots, dtype=torch.int64,
-                                   device=self.device))
-        if self._meta is not None:
-            self._meta.update(zip(slots, slot_metadata(
+        updates = {}
+        if kept:
+            self._slot = (slots[-1] + 1) % n_slots
+            for lv, s in zip(kept, slots):
+                self._host_levels[s] = lv
+            # The flags of ``fresh`` are its own; _swap_rows leaves the
+            # pool's.
+            fresh = pack_levels(kept, self.pool.num_agents,
+                                self.pool.exit_locs.shape[-2],
+                                device=self.device)
+            _swap_rows(self._local_pool if self._multi else self.pool,
+                       fresh, torch.as_tensor(slots, dtype=torch.int64,
+                                              device=self.device))
+            updates = dict(zip((off + s for s in slots), slot_metadata(
                 fresh, [lv.name or ("level-%d" % s)
                         for lv, s in zip(kept, slots)])))
+        if self._multi:
+            # Every rank gathers the pool again, in place (holders of the
+            # pool see the new levels), and every rank's swapped slots.
+            _swap_rows(self.pool, M.allgather_level_pool(self._local_pool),
+                       torch.arange(n_slots * world, device=self.device))
+            parts = [None] * world
+            torch.distributed.all_gather_object(parts, updates)
+            updates = {k: v for p in parts for k, v in p.items()}
+        for s in updates:
+            if self._restored_meta:
+                self._restored_meta.pop(s, None)
+        if self._meta is not None:
+            self._meta.update(updates)
         return len(kept)
 
     def _level_compatible(self, lv):
@@ -471,8 +532,7 @@ class LevelPoolManager:
         exit padding."""
         if lv.num_agents > self.pool.num_agents:
             return False
-        n_exits = int(((lv.board & (C.EXIT | C.AGENT)) == C.EXIT).sum())
-        if n_exits > self.pool.exit_locs.shape[-2]:
+        if _num_exits(lv) > self.pool.exit_locs.shape[-2]:
             return False
         if self.pool.spawner_free and bool(
                 ((lv.board | lv.goals) & C.SPAWNING).any()):
@@ -577,6 +637,10 @@ def gen_benchmarks(out_dir, tasks=BENCHMARK_TASKS, num=100, seed=20260816,
         L.save_archive(levels, out_file)
         outs.append(out_file)
     return outs
+
+
+def _num_exits(lv):
+    return int(((lv.board & (C.EXIT | C.AGENT)) == C.EXIT).sum())
 
 
 def _swap_rows(pool, fresh, idx):

@@ -33,12 +33,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: shapes too large to stage); each source also has ``<first entry>_error``.
 KERNELS = {
     "advance.cu": {
-        "sl_advance": [_P] * 4 + [_I] * 7 + [_P],
-        "sl_advance_global": [_P] * 4 + [_I] * 5 + [_P],
+        "sl_advance": [_P] * 4 + [_I] * 9 + [_P],
+        "sl_advance_global": [_P] * 4 + [_I] * 7 + [_P],
     },
     "physics.cu": {
-        "sl_fused_actions_advance": [_P] * 8 + [_I] * 8 + [_P],
-        "sl_fused_actions_advance_global": [_P] * 9 + [_I] * 6 + [_P],
+        "sl_fused_actions_advance": [_P] * 8 + [_I] * 9 + [_P],
+        "sl_fused_actions_advance_global": [_P] * 9 + [_I] * 7 + [_P],
     },
     "obs.cu": {
         "sl_recenter_views": [_P] * 7 + [_I] * 10 + [_P],

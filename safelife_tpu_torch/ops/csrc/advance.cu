@@ -24,7 +24,8 @@ __global__ void __launch_bounds__(1024)
                    const float* __restrict__ spawn_prob,
                    const int* __restrict__ seed, int* __restrict__ out,
                    int batch, int h, int w, int boards_per_block,
-                   int rows_per_thread, int stochastic) {
+                   int rows_per_thread, int stochastic, int lane_offset,
+                   int cell_offset) {
   extern __shared__ __align__(16) int smem[];
   const int hw = h * w;
   const int lane0 = blockIdx.x * boards_per_block;
@@ -35,7 +36,8 @@ __global__ void __launch_bounds__(1024)
   stage_in(s, board + (size_t)lane0 * hw, nb * hw);
   __syncthreads();
   ca_step_block(s, q, nb, h, w, rows_per_thread, lane0, stochastic != 0,
-                (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob);
+                (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob, lane_offset,
+                cell_offset);
   store_out(out + (size_t)lane0 * hw, s, nb * hw);
 }
 
@@ -46,14 +48,15 @@ __global__ void __launch_bounds__(256)
                           const float* __restrict__ spawn_prob,
                           const int* __restrict__ seed,
                           int* __restrict__ out, int batch, int h, int w,
-                          int stochastic) {
+                          int stochastic, int lane_offset, int cell_offset) {
   const size_t hw = (size_t)h * w;
   const bool st = stochastic != 0;
   for (int lane = blockIdx.y; lane < batch; lane += gridDim.y) {
     ca_cells_global(board + lane * hw, out + lane * hw, h, w,
                     blockIdx.x * blockDim.x + threadIdx.x,
                     gridDim.x * blockDim.x, lane, st, (uint32_t)seed[0],
-                    (uint32_t)seed[1], st ? spawn_prob[lane] : 0.0f);
+                    (uint32_t)seed[1], st ? spawn_prob[lane] : 0.0f,
+                    lane_offset, cell_offset);
   }
 }
 
@@ -62,7 +65,8 @@ __global__ void __launch_bounds__(256)
 extern "C" int sl_advance(const void* board, const void* spawn_prob,
                           const void* seed, void* out, int batch, int h,
                           int w, int boards_per_block, int rows_per_thread,
-                          int threads, int stochastic, void* stream) {
+                          int threads, int stochastic, int lane_offset,
+                          int cell_offset, void* stream) {
   if (batch == 0) return 0;
   const int blocks = (batch + boards_per_block - 1) / boards_per_block;
   const size_t smem = (size_t)boards_per_block * h * w * SMEM_BYTES_PER_CELL;
@@ -74,20 +78,22 @@ extern "C" int sl_advance(const void* board, const void* spawn_prob,
   }
   advance_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const int*)board, (const float*)spawn_prob, (const int*)seed,
-      (int*)out, batch, h, w, boards_per_block, rows_per_thread, stochastic);
+      (int*)out, batch, h, w, boards_per_block, rows_per_thread, stochastic,
+      lane_offset, cell_offset);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sl_advance_global(const void* board, const void* spawn_prob,
                                  const void* seed, void* out, int batch,
                                  int h, int w, int threads, int stochastic,
+                                 int lane_offset, int cell_offset,
                                  void* stream) {
   if (batch == 0) return 0;
   const dim3 grid((h * w + threads - 1) / threads,
                   batch < 65535 ? batch : 65535);
   advance_global_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int*)board, (const float*)spawn_prob, (const int*)seed,
-      (int*)out, batch, h, w, stochastic);
+      (int*)out, batch, h, w, stochastic, lane_offset, cell_offset);
   return (int)cudaGetLastError();
 }
 

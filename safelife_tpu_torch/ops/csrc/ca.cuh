@@ -90,8 +90,9 @@ __device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1,
   return x0;
 }
 
-// Spawn coin flip of cell `cell` on board `lane`: the top 24 bits as a
-// float32 uniform in [0, 1), compared with the float32 spawn probability.
+// Spawn coin flip of cell `cell` on board `lane` (both counter words, the
+// caller's offsets already added; they wrap mod 2^32): the top 24 bits as
+// a float32 uniform in [0, 1), compared with the float32 spawn probability.
 __device__ __forceinline__ bool spawn_draw(int cell, int lane, uint32_t k0,
                                            uint32_t k1, float prob) {
   uint32_t bits = philox_word((uint32_t)cell, (uint32_t)lane, k0, k1);
@@ -124,7 +125,8 @@ __device__ __forceinline__ uint32_t pack_cell(int v) {
 // The SafeLife rule for one cell of raw value v, given the neighbourhood
 // sum and OR of packed words. When `stochastic` is set, a spawn-eligible
 // cell draws its coin from Philox keyed by (k0, k1) at counter
-// (cell, lane); otherwise spawners never fire.
+// (cell, lane) (the global cell and lane: the caller adds its offsets);
+// otherwise spawners never fire.
 __device__ __forceinline__ int ca_rule(int v, uint32_t sum, uint32_t orw,
                                        int cell, int lane, bool stochastic,
                                        uint32_t k0, uint32_t k1, float prob) {
@@ -211,7 +213,10 @@ __device__ __forceinline__ void row_taps(const uint32_t* row, int xm, int x,
 
 // One CA step, in place, of the nb boards of h x w cells staged one after
 // another at `s` in shared memory; `q` is shared scratch of as many words.
-// Board b is board lane0 + b of the batch. Each thread walks `rows` rows
+// Board b is board lane0 + b of the batch; its coins are drawn at counter
+// (cell + cell_offset, lane0 + b + lane_offset), the offsets placing a
+// slice of a larger batch (or of a larger board) at its global counters.
+// Each thread walks `rows` rows
 // of one column (a segment; the wrapper cuts columns into segments when
 // the batch is too small to keep the card busy with whole columns).
 // Starts and ends with the block in step (the caller must have
@@ -219,7 +224,7 @@ __device__ __forceinline__ void row_taps(const uint32_t* row, int xm, int x,
 __device__ __forceinline__ void ca_step_block(
     int* __restrict__ s, uint32_t* __restrict__ q, int nb, int h, int w,
     int rows, int lane0, bool stochastic, uint32_t k0, uint32_t k1,
-    const float* __restrict__ spawn_prob) {
+    const float* __restrict__ spawn_prob, int lane_offset, int cell_offset) {
   const int hw = h * w;
   const int n = nb * hw;
   for (int i = threadIdx.x; i < n; i += blockDim.x) q[i] = pack_cell(s[i]);
@@ -250,8 +255,9 @@ __device__ __forceinline__ void ca_step_block(
     for (int y = y0; y < y1; ++y, i += w) {
       uint32_t s_dn, o_dn;
       row_taps(qb + (y + 1 == h ? 0 : i + w - x), xm, x, xp, &s_dn, &o_dn);
-      sb[i] = ca_rule(sb[i], s_up + s_mid + s_dn, o_up | o_mid | o_dn, i,
-                      lane, stochastic, k0, k1, prob);
+      sb[i] = ca_rule(sb[i], s_up + s_mid + s_dn, o_up | o_mid | o_dn,
+                      i + cell_offset, lane + lane_offset, stochastic, k0, k1,
+                      prob);
       s_up = s_mid;
       o_up = o_mid;
       s_mid = s_dn;
@@ -265,12 +271,13 @@ __device__ __forceinline__ void ca_step_block(
 // (above MAX_CELLS of ops/physics.py): cells first, first + stride, ... of
 // the h x w board `src` of batch lane `lane`, each read with its 3x3
 // neighbourhood straight from device memory, every neighbour packed as it
-// is read, into `dst`. `src` is not __restrict__: K1 writes it earlier in
+// is read, into `dst`. Coins are drawn at counter (cell + cell_offset,
+// lane + lane_offset). `src` is not __restrict__: K1 writes it earlier in
 // the same kernel.
 __device__ __forceinline__ void ca_cells_global(
     const int* src, int* __restrict__ dst, int h, int w, int first,
     int stride, int lane, bool stochastic, uint32_t k0, uint32_t k1,
-    float prob) {
+    float prob, int lane_offset, int cell_offset) {
   const int hw = h * w;
   for (int i = first; i < hw; i += stride) {
     const int y = i / w;
@@ -288,7 +295,8 @@ __device__ __forceinline__ void ca_cells_global(
       sum += a + c + d;
       orw |= a | c | d;
     }
-    dst[i] = ca_rule(src[i], sum, orw, i, lane, stochastic, k0, k1, prob);
+    dst[i] = ca_rule(src[i], sum, orw, i + cell_offset, lane + lane_offset,
+                     stochastic, k0, k1, prob);
   }
 }
 

@@ -128,7 +128,7 @@ __global__ void __launch_bounds__(1024)
                    int* __restrict__ out_locs, int* __restrict__ out_cells,
                    int batch, int h, int w, int n_agents,
                    int boards_per_block, int rows_per_thread,
-                   int stochastic) {
+                   int stochastic, int lane_offset) {
   extern __shared__ __align__(16) int smem[];
   const int hw = h * w;
   const int lane0 = blockIdx.x * boards_per_block;
@@ -147,7 +147,8 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
 
   ca_step_block(s, q, nb, h, w, rows_per_thread, lane0, stochastic != 0,
-                (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob);
+                (uint32_t)seed[0], (uint32_t)seed[1], spawn_prob, lane_offset,
+                0);
 
   if (b < nb) read_cells(s + b * hw, hw, w, first, n_agents, out_locs,
                          out_cells);
@@ -167,7 +168,7 @@ __global__ void __launch_bounds__(1024)
                           const int* __restrict__ seed, int* scratch,
                           int* out_board, int* __restrict__ out_locs,
                           int* __restrict__ out_cells, int h, int w,
-                          int n_agents, int stochastic) {
+                          int n_agents, int stochastic, int lane_offset) {
   const int lane = blockIdx.x;
   const int hw = h * w;
   const int* src = board + (size_t)lane * hw;
@@ -184,7 +185,7 @@ __global__ void __launch_bounds__(1024)
   const bool st = stochastic != 0;
   ca_cells_global(tmp, dst, h, w, threadIdx.x, blockDim.x, lane, st,
                   (uint32_t)seed[0], (uint32_t)seed[1],
-                  st ? spawn_prob[lane] : 0.0f);
+                  st ? spawn_prob[lane] : 0.0f, lane_offset, 0);
   __syncthreads();
 
   if (threadIdx.x == 0)
@@ -198,7 +199,7 @@ extern "C" int sl_fused_actions_advance(
     const void* spawn_prob, const void* seed, void* out_board,
     void* out_locs, void* out_cells, int batch, int h, int w, int n_agents,
     int boards_per_block, int rows_per_thread, int threads, int stochastic,
-    void* stream) {
+    int lane_offset, void* stream) {
   if (batch == 0) return 0;
   const int blocks = (batch + boards_per_block - 1) / boards_per_block;
   const size_t smem = (size_t)boards_per_block * h * w * SMEM_BYTES_PER_CELL;
@@ -212,7 +213,7 @@ extern "C" int sl_fused_actions_advance(
       (const int*)board, (const int*)locs, (const int*)actions,
       (const float*)spawn_prob, (const int*)seed, (int*)out_board,
       (int*)out_locs, (int*)out_cells, batch, h, w, n_agents,
-      boards_per_block, rows_per_thread, stochastic);
+      boards_per_block, rows_per_thread, stochastic, lane_offset);
   return (int)cudaGetLastError();
 }
 
@@ -220,13 +221,13 @@ extern "C" int sl_fused_actions_advance_global(
     const void* board, const void* locs, const void* actions,
     const void* spawn_prob, const void* seed, void* scratch, void* out_board,
     void* out_locs, void* out_cells, int batch, int h, int w, int n_agents,
-    int threads, int stochastic, void* stream) {
+    int threads, int stochastic, int lane_offset, void* stream) {
   if (batch == 0) return 0;
   physics_global_kernel<<<batch, threads, 0, (cudaStream_t)stream>>>(
       (const int*)board, (const int*)locs, (const int*)actions,
       (const float*)spawn_prob, (const int*)seed, (int*)scratch,
       (int*)out_board, (int*)out_locs, (int*)out_cells, h, w, n_agents,
-      stochastic);
+      stochastic, lane_offset);
   return (int)cudaGetLastError();
 }
 

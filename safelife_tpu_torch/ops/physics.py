@@ -23,8 +23,13 @@ routes by board shape too (``safelife_tpu/ops/physics.py:78``).
 :mod:`._build` counts the launches of each form.
 
 Randomness: the stochastic spawn coin of cell ``i`` on board ``lane`` is
-the first word of Philox4x32-10 at counter ``(i, lane, 0, 0)`` under the
-two seed words as key; its top 24 bits give a float32 uniform
+the first word of Philox4x32-10 at counter ``(i + cell_offset,
+lane + lane_offset, 0, 0)`` (mod 2**32) under the two seed words as key;
+both offsets default to 0. A rank that holds global lanes ``[s, s + b)`` of
+a sharded batch passes ``lane_offset = s``, so its boards draw the coins of
+the same lanes of the whole batch; the row-sharded advance of
+:mod:`..parallel.spatial` passes K2 a ``cell_offset`` that puts a halo slab
+at its board's global cells. Its top 24 bits give a float32 uniform
 ``u = (bits >> 8) * 2**-24`` and the cell spawns when ``u < spawn_prob``
 (float32), as the Pallas kernel compares at ``:279-282``. The plain
 versions compute the same bits with int64 tensor arithmetic
@@ -137,22 +142,26 @@ def philox4x32(ctr, key):
     return x0, x1, x2, x3
 
 
-def philox_bits(seed, batch, cells):
+def philox_bits(seed, batch, cells, lane_offset=0, cell_offset=0):
     """int64[batch, cells] in [0, 2**32): the spawn bits of every cell of
-    every board for the int32[2] ``seed`` (counter (cell, lane, 0, 0))."""
+    every board for the int32[2] ``seed`` (counter (cell + cell_offset,
+    lane + lane_offset, 0, 0), each word mod 2**32)."""
     dev = seed.device
     key = seed.to(torch.int64) & _U32
-    cell = torch.arange(cells, dtype=torch.int64, device=dev)[None, :]
-    lane = torch.arange(batch, dtype=torch.int64, device=dev)[:, None]
+    cell = (torch.arange(cells, dtype=torch.int64, device=dev)
+            + cell_offset)[None, :] & _U32
+    lane = (torch.arange(batch, dtype=torch.int64, device=dev)
+            + lane_offset)[:, None] & _U32
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     x0, _, _, _ = philox4x32((cell, lane, zero, zero), (key[0], key[1]))
     return x0.expand(batch, cells)
 
 
-def spawn_coins(seed, spawn_prob, batch, cells):
+def spawn_coins(seed, spawn_prob, batch, cells, lane_offset=0,
+                cell_offset=0):
     """bool[batch, cells]: the spawn coin flips the kernels draw."""
-    u = (philox_bits(seed, batch, cells) >> 8).to(torch.float32) \
-        * (1.0 / (1 << 24))
+    u = (philox_bits(seed, batch, cells, lane_offset, cell_offset) >> 8).to(
+        torch.float32) * (1.0 / (1 << 24))
     return u < spawn_prob.to(torch.float32)[:, None]
 
 
@@ -173,19 +182,28 @@ def _require(name, tensor, dtype, shape, device):
                           tuple(tensor.shape), tensor.device))
 
 
+def _int32(name, x):
+    """A counter offset as a C int; the kernels add it in 32 bits."""
+    x = int(x)
+    if not -2 ** 31 <= x < 2 ** 31:
+        raise ValueError("%s %d does not fit 32 bits" % (name, x))
+    return x
+
+
 # ---------------------------------------------------------------------------
 # K1
 
 
 def fused_actions_advance_plain(board, agent_locs, actions, spawn_prob, seed,
-                                *, h, w, stochastic):
+                                *, h, w, stochastic, lane_offset=0):
     """Plain version of K1: ``core.actions.execute_actions``, then the CA
     step with the Philox coins, then ``scoring.agent_cells``."""
     b = board.shape[0]
     grid, locs = AC.execute_actions(board.reshape(b, h, w), agent_locs,
                                     actions)
     if stochastic:
-        coins = spawn_coins(seed, spawn_prob, b, h * w).reshape(b, h, w)
+        coins = spawn_coins(seed, spawn_prob, b, h * w,
+                            lane_offset).reshape(b, h, w)
     else:
         coins = torch.zeros_like(grid, dtype=torch.bool)
     grid = ADV.advance_board_given_spawns(grid, coins)
@@ -193,12 +211,13 @@ def fused_actions_advance_plain(board, agent_locs, actions, spawn_prob, seed,
 
 
 def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
-                          *, h, w, stochastic):
+                          *, h, w, stochastic, lane_offset=0):
     """Fused actions + CA advance + agent-cell readback over a batch.
 
     board int32[B, H*W]; agent_locs int32[B, A, 2] (row, col); actions
     int32[B, A] (padded agents must be 0); spawn_prob float32[B]; seed
-    int32[2]. Returns (board int32[B, H*W], agent_locs int32[B, A, 2],
+    int32[2]; ``lane_offset``: the global index of board 0 in the coins'
+    counter. Returns (board int32[B, H*W], agent_locs int32[B, A, 2],
     cells int32[B, A]).
     """
     dev = board.device
@@ -206,7 +225,7 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
     if dev.type == "cpu":
         return fused_actions_advance_plain(
             board, agent_locs, actions, spawn_prob, seed,
-            h=h, w=w, stochastic=stochastic)
+            h=h, w=w, stochastic=stochastic, lane_offset=lane_offset)
     b = board.shape[0]
     a = agent_locs.shape[1]
     _require("board", board, torch.int32, (b, h * w), dev)
@@ -226,11 +245,13 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
         scratch = torch.empty_like(board)
         _build.launch("sl_fused_actions_advance_global", dev, *inputs,
                       scratch.data_ptr(), *outputs, b, h, w, a,
-                      GLOBAL_THREADS_K1, int(bool(stochastic)))
+                      GLOBAL_THREADS_K1, int(bool(stochastic)),
+                      _int32("lane_offset", lane_offset))
     else:
         bpb, rows, threads, _ = launch_shape(h, w, b)
         _build.launch("sl_fused_actions_advance", dev, *inputs, *outputs,
-                      b, h, w, a, bpb, rows, threads, int(bool(stochastic)))
+                      b, h, w, a, bpb, rows, threads, int(bool(stochastic)),
+                      _int32("lane_offset", lane_offset))
     return out_board, out_locs, out_cells
 
 
@@ -238,26 +259,31 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
 # K2
 
 
-def advance_plain(board, spawn_prob, seed, *, h, w, stochastic):
+def advance_plain(board, spawn_prob, seed, *, h, w, stochastic,
+                  lane_offset=0, cell_offset=0):
     """Plain version of K2: the CA step of ``core.advance`` with the
     Philox coins."""
     b = board.shape[0]
     grid = board.reshape(b, h, w)
     if stochastic:
-        coins = spawn_coins(seed, spawn_prob, b, h * w).reshape(b, h, w)
+        coins = spawn_coins(seed, spawn_prob, b, h * w, lane_offset,
+                            cell_offset).reshape(b, h, w)
     else:
         coins = torch.zeros_like(grid, dtype=torch.bool)
     return ADV.advance_board_given_spawns(grid, coins).reshape(b, h * w)
 
 
-def advance(board, spawn_prob, seed, *, h, w, stochastic):
+def advance(board, spawn_prob, seed, *, h, w, stochastic, lane_offset=0,
+            cell_offset=0):
     """One batched CA step (no agents). board int32[B, H*W]; spawn_prob
-    float32[B]; seed int32[2] → int32[B, H*W]."""
+    float32[B]; seed int32[2] → int32[B, H*W]. Cell ``i`` of board ``lane``
+    draws its coin at counter (i + cell_offset, lane + lane_offset)."""
     dev = board.device
     _check("advance", board, h, w, dev)
     if dev.type == "cpu":
         return advance_plain(board, spawn_prob, seed, h=h, w=w,
-                             stochastic=stochastic)
+                             stochastic=stochastic, lane_offset=lane_offset,
+                             cell_offset=cell_offset)
     b = board.shape[0]
     _require("board", board, torch.int32, (b, h * w), dev)
     _require("spawn_prob", spawn_prob, torch.float32, (b,), dev)
@@ -265,11 +291,13 @@ def advance(board, spawn_prob, seed, *, h, w, stochastic):
     out = torch.empty_like(board)
     args = (board.data_ptr(), spawn_prob.data_ptr(), seed.data_ptr(),
             out.data_ptr(), b, h, w)
+    offsets = (_int32("lane_offset", lane_offset),
+               _int32("cell_offset", cell_offset))
     if h * w > MAX_CELLS:
         _build.launch("sl_advance_global", dev, *args, GLOBAL_THREADS_K2,
-                      int(bool(stochastic)))
+                      int(bool(stochastic)), *offsets)
     else:
         bpb, rows, threads, _ = launch_shape(h, w, b)
         _build.launch("sl_advance", dev, *args, bpb, rows, threads,
-                      int(bool(stochastic)))
+                      int(bool(stochastic)), *offsets)
     return out

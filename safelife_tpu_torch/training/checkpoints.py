@@ -112,16 +112,22 @@ class CheckpointManager:
             if os.path.exists(self._extra_path(old)):
                 os.remove(self._extra_path(old))
 
-    def save_if_needed(self, step, state, extra=None):
-        """Save when ``step`` has reached the next multiple of
-        ``interval``."""
+    def due(self, step):
+        """Whether ``step`` has reached the next multiple of ``interval``
+        (then the next one is the following multiple)."""
         if self.next_checkpoint is None:
             self.next_checkpoint = (
                 int(step) // self.interval + 1) * self.interval
-        if int(step) >= self.next_checkpoint:
+        if int(step) < self.next_checkpoint:
+            return False
+        self.next_checkpoint = (int(step) // self.interval + 1) * self.interval
+        return True
+
+    def save_if_needed(self, step, state, extra=None):
+        """Save when ``step`` has reached the next multiple of
+        ``interval``."""
+        if self.due(step):
             self.save(step, state, extra)
-            self.next_checkpoint = (
-                int(step) // self.interval + 1) * self.interval
 
     def latest_step(self):
         steps = self.steps()

@@ -35,6 +35,15 @@ stored as the env emits them: packed int32 views, or uint8 channels with
 ``packed_obs`` off. Randomness comes from one ``torch.Generator`` on the
 pool's device; ``actions`` and ``sample_idx`` inject the draws instead
 (tests replay the JAX package's).
+
+Sharded over ranks (a rank's ``lanes``, :mod:`..parallel.mesh`), each
+rank keeps the n-step rings of its own lanes, and the replay is
+replicated: a unit's emissions are gathered from every rank and pushed in
+global lane order (:func:`push_emissions_sharded`), so every rank's replay
+equals the one-process replay. The sample indices come from the generator
+that every rank seeds alike, so every rank takes the same Adam step;
+rank 0's gradients are broadcast before it, which keeps the parameters
+bitwise equal where a library's backward does not sum in a fixed order.
 """
 
 import copy
@@ -43,7 +52,10 @@ import dataclasses
 import torch
 
 from ..env import wrappers as W
+import numpy as np
+
 from ..models.nets import learner_precision
+from ..parallel import mesh as M
 from ..utils.device import require_device, resolve_device
 from .ppo import (EPISODE_KEYS, _flatten_agents, _model_device, _stack,
                   make_optimizer)
@@ -232,16 +244,10 @@ def step_trajectories(cfg, traj, obs, action, reward, next_obs, done,
     return traj, emissions
 
 
-def push_emissions(buf, emissions):
-    """Write a chunk's step emissions (a list of
-    :func:`step_trajectories`' dicts, in step order; [T, K, N] flattened
-    in arrival order) to the replay buffer, in place: one push. Returns
-    ``buf``."""
-    valid = torch.stack([e["valid"] for e in emissions])
-    k_n, n_lanes = valid.shape[1:]
-    pos, slots = _land(buf, valid)
-    if not pos.numel():
-        return buf
+def _emission_rows(emissions, pos):
+    """The replay rows of the emissions at flat positions ``pos`` of the
+    [T, K, N] planes: (planes dict, obs, next_obs)."""
+    k_n, n_lanes = emissions[0]["valid"].shape
     planes = {name: torch.stack([e[name] for e in emissions]).reshape(-1)
               .index_select(0, pos) for name in ("action", "reward", "done")}
     step, k, lane = pos // (k_n * n_lanes), (pos // n_lanes) % k_n, \
@@ -262,7 +268,62 @@ def push_emissions(buf, emissions):
             here = (step == t).reshape(shape)
             obs = torch.where(here, o, obs)
             next_obs = torch.where(here, no, next_obs)
+    return planes, obs, next_obs
+
+
+def push_emissions(buf, emissions):
+    """Write a chunk's step emissions (a list of
+    :func:`step_trajectories`' dicts, in step order; [T, K, N] flattened
+    in arrival order) to the replay buffer, in place: one push. Returns
+    ``buf``."""
+    pos, slots = _land(buf, torch.stack([e["valid"] for e in emissions]))
+    if not pos.numel():
+        return buf
+    planes, obs, next_obs = _emission_rows(emissions, pos)
     _write(buf, slots, obs=obs, next_obs=next_obs, **planes)
+    return buf
+
+
+def push_emissions_sharded(buf, emissions, lanes):
+    """:func:`push_emissions` of the emissions of every rank: each rank's
+    [T, K, n] planes hold its lanes' slots (``n = N / R``), and the push
+    writes the valid entries of the global [T, K, N] planes in arrival
+    order, so every rank's replay equals the one-process replay. The
+    validity masks are all-gathered and read on the host (the push's one
+    host sync), then each rank's valid rows, padded to the longest, are
+    all-gathered and put in global order. Returns ``buf``."""
+    valid = torch.stack([e["valid"] for e in emissions])
+    t_n, k_n, n = valid.shape
+    masks = torch.stack(M.all_gather(valid.to(torch.uint8)))
+    r, t, k, j = np.nonzero(masks.cpu().numpy())
+    world = masks.shape[0]
+    counts = np.bincount(r, minlength=world)
+    total = int(counts.sum())
+    first = max(total - buf.capacity, 0)
+    slots = (buf.idx + torch.arange(first, total, device=valid.device)) \
+        % buf.capacity
+    buf.idx += total
+    if not total:
+        return buf
+    mine = r == M.process_index()
+    pos = torch.as_tensor(((t * k_n + k) * n + j)[mine], device=valid.device)
+    planes, obs, next_obs = _emission_rows(emissions, pos)
+    ints = torch.stack([planes["action"].to(torch.int32),
+                        planes["reward"].view(torch.int32),
+                        planes["done"].to(torch.int32)], 1)
+    width = max(int(counts.max()), 1)
+    gathered = []
+    for x in (ints, obs, next_obs):
+        pad = x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))
+        parts = M.all_gather(torch.cat([x, pad]))
+        gathered.append(torch.cat([p[:c] for p, c in zip(parts, counts)]))
+    # Rank-major rows -> arrival order of the global planes.
+    key = (t * k_n + k) * (world * n) + r * n + j
+    order = torch.as_tensor(np.argsort(key, kind="stable")[first:],
+                            device=valid.device)
+    ints, obs, next_obs = (x.index_select(0, order) for x in gathered)
+    _write(buf, slots, obs=obs, next_obs=next_obs, action=ints[:, 0],
+           reward=ints[:, 1].view(torch.float32), done=ints[:, 2] != 0)
     return buf
 
 
@@ -322,19 +383,20 @@ def init_dqn_state(cfg, model, batch, obs_shape, obs_dtype=torch.uint8,
 
 
 @torch.no_grad()
-def act_epsilon_greedy(model, obs, epsilon, generator):
-    return epsilon_greedy(model(obs), epsilon, generator)
+def act_epsilon_greedy(model, obs, epsilon, generator, lanes=None):
+    return epsilon_greedy(model(obs), epsilon, generator, lanes)
 
 
 @torch.no_grad()
 def collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, n_steps,
-            actions=None):
+            actions=None, lanes=None):
     """``n_steps`` env steps, acting ε-greedily (or taking ``actions`` int
     [T, B, A]); the n-step rings advance and the emissions land in the
     replay in one push. The env step applies no side-effect penalty and
     no exit-difficulty schedule, as the JAX package's DQN
-    (``dqn.py:296-297``). Returns (ws, obs, each step's episode records
-    [T, B, ...])."""
+    (``dqn.py:296-297``). With a rank's ``lanes`` the state is those
+    lanes' and the push gathers every rank's emissions. Returns (ws, obs,
+    each step's episode records [T, B, ...])."""
     emissions, records = [], []
     for t in range(n_steps):
         b, a = obs.shape[:2]
@@ -346,30 +408,39 @@ def collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, n_steps,
         if actions is None:
             act = act_epsilon_greedy(
                 dstate.model, flat_obs,
-                float(epsilon_schedule(cfg, dstate.num_steps)), generator)
+                float(epsilon_schedule(cfg, dstate.num_steps)), generator,
+                lanes)
         else:
             act = actions[t].reshape(-1).to(device=flat_obs.device,
                                             dtype=torch.int64)
         ws, obs, reward, done, info = W.step(
             env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
-            se_penalty_coef=0.0, min_perf_fraction=1.0)
+            se_penalty_coef=0.0, min_perf_fraction=1.0, lanes=lanes)
         dstate.traj, em = step_trajectories(
             cfg, dstate.traj, flat_obs, act, _flatten_agents(reward),
             _flatten_agents(obs), _flatten_agents(done), valid)
-        dstate.num_steps += b
+        dstate.num_steps += b if lanes is None else lanes.total
         emissions.append(em)
         records.append({k: info[k] for k in EPISODE_KEYS})
-    dstate.replay = push_emissions(dstate.replay, emissions)
+    if lanes is None:
+        dstate.replay = push_emissions(dstate.replay, emissions)
+    else:
+        dstate.replay = push_emissions_sharded(dstate.replay, emissions,
+                                               lanes)
     return ws, obs, _stack(records)
 
 
-def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
+def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None,
+             lanes=None):
     """One Adam step on ``cfg.batch_size`` entries drawn uniformly from the
     replay (or at ``sample_idx``) once it holds ``replay_initial``; while
     it is cold the loss is reported and nothing moves. The target network
     then syncs if ``num_steps`` crossed a multiple of
     ``target_update_interval`` over the ``n_env_steps`` steps just
-    collected. Returns the metrics (the loss's from before the step)."""
+    collected. With a rank's ``lanes`` every rank holds the same replay
+    and draws the same indices; rank 0's gradients are broadcast before
+    the step. Returns the metrics (the loss's from before the
+    step)."""
     replay = dstate.replay
     size = replay.size()
     dev = replay.obs.device
@@ -387,6 +458,8 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
         if warm:
             dstate.optimizer.zero_grad(set_to_none=False)
             loss.backward()
+            if lanes is not None:
+                M.broadcast_grads(dstate.model)
             dstate.optimizer.step()
     n, every = dstate.num_steps, cfg.target_update_interval
     if n // every > (n - n_env_steps) // every:
@@ -398,7 +471,7 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
 
 def collect_and_optimize(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
                          generator, n_steps, actions=None, sample_idx=None,
-                         device="cuda"):
+                         device="cuda", lanes=None):
     """``n_steps`` env steps filling the replay (:func:`collect`), then one
     optimizer step if the buffer is warm (:func:`optimize`). The pool and
     the model live on ``device``. Updates ``dstate`` in place; returns
@@ -406,16 +479,17 @@ def collect_and_optimize(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
     metrics."""
     require_device(device, pool.device, "the level pool")
     require_device(device, _model_device(dstate.model), "the model")
-    b = obs.shape[0]
+    b = obs.shape[0] if lanes is None else lanes.total
     ws, obs, episodes = collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
-                                generator, n_steps, actions)
-    metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx)
+                                generator, n_steps, actions, lanes)
+    metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx,
+                       lanes)
     metrics["episodes"] = episodes
     return dstate, ws, obs, metrics
 
 
 def train_chunk(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator,
-                n_steps, n_iters, device="cuda"):
+                n_steps, n_iters, device="cuda", lanes=None):
     """``n_iters`` collect-and-optimize units. The episode records are
     flattened over the chunk's units, steps and lanes ([U*T*B, ...], the
     form ``EpisodeCollector.observe`` takes); the scalar metrics are the
@@ -424,7 +498,7 @@ def train_chunk(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator,
     for _ in range(n_iters):
         dstate, ws, obs, metrics = collect_and_optimize(
             env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, n_steps,
-            device=device)
+            device=device, lanes=lanes)
         episodes.append(metrics.pop("episodes"))
     metrics["episodes"] = {
         k: torch.cat([e[k].reshape((-1,) + tuple(e[k].shape[2:]))

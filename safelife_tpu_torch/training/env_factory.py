@@ -6,7 +6,7 @@ Port of ``safelife_tpu/training/env_factory.py``: ``TRAINING_CHANNELS``
 (``:42-53``), ``SwitchingLevelIterator`` (``:56-67``),
 ``CurricularLevelIterator`` (``:70-163``), ``task_types`` (``:167-286``),
 ``MULTIAGENT_PAD`` (``:291``), ``EnvBundle`` (``:294-314``) and
-``build_environments`` (``:317-467``) for one process.
+``build_environments`` (``:317-467``).
 
 The reference's ``training/env_factory.py``: the task registry (same task
 names), linear schedules driven by the logger's cumulative training steps,
@@ -28,6 +28,7 @@ from ..io.iterator import LevelPoolManager, SafeLifeLevelIterator
 from ..io.levels import LEVEL_DIRECTORY, load_levels
 from ..loggers import SafeLifeLogger
 from ..models.nets import TRAINING_CHANNELS
+from ..parallel.mesh import per_host_seed
 from ..utils.device import resolve_device
 from ..utils.rng import coinflip, get_rng
 
@@ -317,7 +318,9 @@ class EnvBundle:
 def build_environments(config, data_dir=None, num_envs=64, pool_size=None,
                        procgen_workers=4, device="cuda"):
     """Build the training bundle of a task, its level pool on ``device``
-    (reference ``env_factory.py:290-410``, for one process).
+    (reference ``env_factory.py:290-410``). In a multi-process run each
+    rank generates ``pool_size`` levels of its own stream and the pool is
+    all of them (:class:`..io.iterator.LevelPoolManager`).
 
     ``pool_size`` defaults to ``max(32, min(256, 2 * num_envs))``: refresh
     only rotates slots no live lane references, so the pool must exceed
@@ -343,12 +346,9 @@ def build_environments(config, data_dir=None, num_envs=64, pool_size=None,
 
     seed = np.random.SeedSequence(config.setdefault('seed', None))
     training_seed, benchmark_seed = seed.spawn(2)
-    # The training stream of process 0, as the JAX package's
-    # ``parallel/mesh.py::per_host_seed`` folds it (one process here;
-    # ROADMAP.md queue 1 item 6 has the others).
-    training_seed = np.random.SeedSequence(
-        entropy=training_seed.entropy,
-        spawn_key=training_seed.spawn_key + (np.uint32(0),))
+    # Each rank's own training stream (the JAX package's
+    # ``per_host_seed``); the pool manager gathers every rank's pool.
+    training_seed = per_host_seed(training_seed)
 
     view_size = config.setdefault('env.view_size', 25)
     # Packed views (the default): the network unpacks TRAINING_CHANNELS at

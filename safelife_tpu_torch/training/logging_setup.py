@@ -16,21 +16,23 @@ from ..loggers import SafeLifeLogger
 from .global_config import config
 
 
-def setup_logging(data_dir, debug=False):
+def setup_logging(data_dir, debug=False, rank=None):
     """Configure the ``training``/``safelife_tpu_torch`` loggers (console +
-    optional ``training.log`` file in the run directory)."""
+    optional ``training.log`` file in the run directory). With a ``rank``
+    (a multi-process run) each line starts with ``[rank N]``."""
     handlers = ['console']
+    tag = '' if rank is None else '[rank %d] ' % rank
     logging_config = {
         'version': 1,
         'disable_existing_loggers': False,
         'formatters': {
             'simple': {
-                'format': '{levelname:8s} {message}',
+                'format': tag + '{levelname:8s} {message}',
                 'style': '{',
             },
             'dated': {
-                'format': '{asctime} {levelname} ({filename}:{lineno}) '
-                          '{message}',
+                'format': tag + '{asctime} {levelname} '
+                          '({filename}:{lineno}) {message}',
                 'style': '{',
                 'datefmt': '%Y-%m-%d %H:%M:%S',
             },

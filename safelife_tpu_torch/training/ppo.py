@@ -24,6 +24,17 @@ in the network's precision (:func:`..models.nets.learner_precision`;
 strict float32, no TF32, by default). Randomness comes
 from one ``torch.Generator`` on the pool's device; ``actions`` and
 ``perms`` inject the draws instead (tests replay the JAX package's).
+
+Sharded over ranks (a rank's ``lanes``, :mod:`..parallel.mesh`), a
+rank rolls out its own lanes and keeps its trajectory. The learner is
+replicated: each epoch's permutation runs over the global sample count,
+drawn alike on every rank, and a rank takes the samples of each global
+minibatch that lie in its lanes. A minibatch's loss is the global one:
+each rank's weighted sums of the three terms and of the weights are
+all-reduced (:func:`_sharded_loss`), so the entropy clamp takes the
+branch of the global mean on every rank; the gradients are then summed
+over the ranks (``allreduce_grads``) and every rank takes the same Adam
+step. The iteration's metrics are global on every rank.
 """
 
 import dataclasses
@@ -33,6 +44,7 @@ import torch
 
 from ..env import wrappers as W
 from ..models.nets import learner_precision
+from ..parallel import mesh as M
 from ..utils.device import require_device
 from .runner import sample_actions
 
@@ -101,13 +113,15 @@ def _stack(steps):
 
 @torch.no_grad()
 def rollout(env_cfg, wcfg, pool, model, ws, obs, generator, n_steps,
-            se_penalty_coef=0.0, min_perf_fraction=1.0, actions=None):
+            se_penalty_coef=0.0, min_perf_fraction=1.0, actions=None,
+            lanes=None):
     """Collect ``n_steps`` of experience from every lane.
 
     obs: the env's observations [B, A, ...]. Agents flatten into the
     learner batch ([B, A] -> [B*A]); ``weight`` masks padded agents and
     agents already finished before the step. ``actions`` int [T, B, A], if
-    given, replaces the sampled actions.
+    given, replaces the sampled actions. With a rank's ``lanes`` the
+    state and observations are those lanes' of the global batch.
 
     Returns (traj dict of [T, B*A, ...] tensors, final (ws, obs), final
     values [B*A]).
@@ -122,14 +136,14 @@ def rollout(env_cfg, wcfg, pool, model, ws, obs, generator, n_steps,
         ).to(torch.float32)
         values, policy = model(flat_obs)
         if actions is None:
-            act = sample_actions(policy, generator)
+            act = sample_actions(policy, generator, lanes)
         else:
             act = actions[t].reshape(-1).to(device=policy.device,
                                             dtype=torch.int64)
         a_prob = policy.gather(-1, act[:, None])[:, 0]
         ws, obs, reward, done, info = W.step(
             env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
-            se_penalty_coef, min_perf_fraction)
+            se_penalty_coef, min_perf_fraction, lanes)
         out.append({
             "obs": flat_obs,
             "actions": act,
@@ -206,10 +220,50 @@ def calculate_loss(cfg, model, obs, actions, old_policy, old_values, returns,
     return _combine(cfg, *means)
 
 
-def _batch_loss(cfg, model, batch, chunk):
+@dataclasses.dataclass(frozen=True)
+class SampleShard:
+    """A rank's rows of the global learner batch of a sharded iteration."""
+
+    index: torch.Tensor   # int64 [n]: the global sample index of each row
+    total: int            # the global sample count
+
+
+def sample_shard(steps, agents, lanes, device):
+    """The :class:`SampleShard` of a rank holding ``lanes``: its rows are
+    ``[T, b, A]`` flattened, the global samples ``[T, B, A]`` flattened."""
+    t = torch.arange(steps, device=device)[:, None, None]
+    lane = torch.arange(lanes.start, lanes.stop,
+                        device=device)[None, :, None]
+    a = torch.arange(agents, device=device)[None, None, :]
+    index = ((t * lanes.total + lane) * agents + a).reshape(-1)
+    return SampleShard(index, steps * lanes.total * agents)
+
+
+def _sharded_loss(cfg, model, mb):
+    """(loss, metrics) of a global minibatch of which ``mb`` holds the
+    rank's rows (possibly none). The weighted sums of the three terms and
+    the weights are all-reduced, so the loss's value is the global one,
+    equal on every rank, and the entropy clamp follows the global mean;
+    the gradient is that of the rank's own rows, which the ranks then
+    sum."""
+    if mb["weight"].numel():
+        terms = _loss_terms(cfg, model, mb["obs"], mb["actions"],
+                            mb["action_prob"], mb["values"], mb["returns"],
+                            mb["advantages"])
+        sums = torch.stack([torch.sum(x * mb["weight"]) for x in terms])
+    else:
+        sums = torch.zeros(3, device=mb["weight"].device)
+    tot = M.all_reduce_sum(
+        torch.cat([sums.detach(), mb["weight"].sum().reshape(1)]))
+    wsum = torch.clamp(tot[3], min=1.0)
+    # Value: the global sums, exactly; gradient: the rank's rows'.
+    return _combine(cfg, *((tot[:3] + (sums - sums.detach())) / wsum))
+
+
+def _batch_loss(cfg, model, batch, chunk, shard=None):
     """:func:`calculate_loss` over the whole batch without a graph, in
     chunks of ``chunk`` samples (the unpacked views of all samples at once
-    would take gigabytes)."""
+    would take gigabytes); over the global batch with a ``shard``."""
     n = batch["obs"].shape[0]
     chunk = max(chunk, 1)
     sums = torch.zeros(3, device=batch["advantages"].device)
@@ -221,8 +275,10 @@ def _batch_loss(cfg, model, batch, chunk):
                                 mb["action_prob"], mb["values"],
                                 mb["returns"], mb["advantages"])
             sums += torch.stack([torch.sum(x * mb["weight"]) for x in terms])
-    wsum = torch.clamp(batch["weight"].sum(), min=1.0)
-    return _combine(cfg, *(sums / wsum))
+    sums = torch.cat([sums, batch["weight"].sum().reshape(1)])
+    if shard is not None:
+        sums = M.all_reduce_sum(sums)
+    return _combine(cfg, *(sums[:3] / torch.clamp(sums[3], min=1.0)))
 
 
 def _minibatch_bounds(n, num_minibatches):
@@ -233,30 +289,64 @@ def _minibatch_bounds(n, num_minibatches):
     return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def train_on_batch(cfg, ppo_state, batch, generator, perms=None):
+def _shard_minibatches(perm, bounds, local_of):
+    """The rank's local rows of each global minibatch of ``perm``, in the
+    permutation's order (two host syncs an epoch)."""
+    pos = local_of.index_select(0, perm)
+    keep = pos >= 0
+    ends = torch.tensor([b for _, b in bounds], device=perm.device) - 1
+    counts = torch.cumsum(keep.to(torch.int64), 0).index_select(0, ends)
+    rows = pos[keep]
+    out, start = [], 0
+    for end in counts.tolist():
+        out.append(rows[start:end])
+        start = end
+    return out
+
+
+def train_on_batch(cfg, ppo_state, batch, generator, perms=None,
+                   shard=None):
     """``epochs_per_batch`` epochs of shuffled minibatch Adam steps over a
     flattened batch (dict of [N, ...] tensors). Each epoch draws a
     permutation with ``torch.randperm`` on ``generator``, or takes
-    ``perms[epoch]``. Updates ``ppo_state`` in place and returns it."""
+    ``perms[epoch]``. With a ``shard`` (:class:`SampleShard`) the batch is
+    the rank's rows of a global batch, the permutations run over the
+    global samples and each minibatch's loss and gradients are global.
+    Updates ``ppo_state`` in place and returns it."""
     model, opt = ppo_state.model, ppo_state.optimizer
-    n = batch["obs"].shape[0]
+    n = batch["obs"].shape[0] if shard is None else shard.total
     dev = batch["obs"].device
     bounds = _minibatch_bounds(n, cfg.num_minibatches)
+    if shard is not None:
+        local_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        local_of[shard.index] = torch.arange(shard.index.shape[0],
+                                             device=dev)
     with learner_precision(model.precision, dev.type):
         for epoch in range(cfg.epochs_per_batch):
             if perms is None:
                 perm = torch.randperm(n, generator=generator, device=dev)
             else:
                 perm = torch.as_tensor(perms[epoch], device=dev).long()
-            for a, b in bounds:
-                idx = perm[a:b]
+            if shard is None:
+                for a, b in bounds:
+                    idx = perm[a:b]
+                    mb = {k: v.index_select(0, idx)
+                          for k, v in batch.items()}
+                    loss, _ = calculate_loss(
+                        cfg, model, mb["obs"], mb["actions"],
+                        mb["action_prob"], mb["values"], mb["returns"],
+                        mb["advantages"], mb["weight"])
+                    opt.zero_grad(set_to_none=False)
+                    loss.backward()
+                    opt.step()
+                continue
+            for idx in _shard_minibatches(perm, bounds, local_of):
                 mb = {k: v.index_select(0, idx) for k, v in batch.items()}
-                loss, _ = calculate_loss(
-                    cfg, model, mb["obs"], mb["actions"], mb["action_prob"],
-                    mb["values"], mb["returns"], mb["advantages"],
-                    mb["weight"])
+                loss, _ = _sharded_loss(cfg, model, mb)
                 opt.zero_grad(set_to_none=False)
-                loss.backward()
+                if idx.numel():
+                    loss.backward()
+                M.allreduce_grads(model)
                 opt.step()
     return ppo_state
 
@@ -279,10 +369,13 @@ def flatten_batch(traj, returns, advantages):
 
 def train_iteration(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs,
                     generator, se_penalty_coef=0.0, min_perf_fraction=1.0,
-                    actions=None, perms=None, device="cuda"):
+                    actions=None, perms=None, device="cuda", lanes=None):
     """One PPO iteration: rollout -> GAE -> minibatch updates, then the
     loss metrics of the whole batch under the updated parameters. The pool
-    and the model live on ``device``.
+    and the model live on ``device``. With a rank's ``lanes`` the state is
+    those lanes', the update and the scalar metrics global (collectives
+    over the default process group); ``actions`` are then the rank's
+    lanes'.
 
     Returns (ppo_state, ws, obs, metrics): the metrics hold 0-dim tensors,
     ``episodes`` (each lane's episode record of every step, [T*B, ...])
@@ -293,22 +386,30 @@ def train_iteration(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs,
     n_lanes = obs.shape[0]
     traj, (ws, obs), final_values = rollout(
         env_cfg, wcfg, pool, ppo_state.model, ws, obs, generator,
-        ppo_cfg.steps_per_env, se_penalty_coef, min_perf_fraction, actions)
+        ppo_cfg.steps_per_env, se_penalty_coef, min_perf_fraction, actions,
+        lanes)
     returns, advantages = compute_gae(ppo_cfg, traj, final_values)
     t = traj["rewards"].shape[0]
     batch = flatten_batch(traj, returns, advantages)
-    train_on_batch(ppo_cfg, ppo_state, batch, generator, perms)
+    shard = None if lanes is None else sample_shard(
+        t, traj["rewards"].shape[1] // n_lanes, lanes, batch["obs"].device)
+    train_on_batch(ppo_cfg, ppo_state, batch, generator, perms, shard)
     # Step counting is per env step, not per agent slot.
-    ppo_state.num_steps += t * n_lanes
+    ppo_state.num_steps += t * (n_lanes if lanes is None else lanes.total)
 
     chunk = _minibatch_bounds(batch["obs"].shape[0],
                               ppo_cfg.num_minibatches)[0][1]
-    _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk)
+    _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk, shard)
     w = batch["weight"]
-    wsum = torch.clamp(w.sum(), min=1.0)
-    metrics["reward_mean"] = torch.sum(traj["rewards"].reshape(-1) * w) / wsum
-    metrics["values_mean"] = torch.sum(batch["values"] * w) / wsum
-    metrics["advantages_mean"] = torch.sum(batch["advantages"] * w) / wsum
+    sums = torch.stack([w.sum()] + [
+        torch.sum(x * w) for x in (traj["rewards"].reshape(-1),
+                                   batch["values"], batch["advantages"])])
+    if shard is not None:
+        sums = M.all_reduce_sum(sums)
+    wsum = torch.clamp(sums[0], min=1.0)
+    metrics["reward_mean"] = sums[1] / wsum
+    metrics["values_mean"] = sums[2] / wsum
+    metrics["advantages_mean"] = sums[3] / wsum
     ep = dict(traj["ep"])
     metrics["ep_samples"] = ep.pop("sample")
     metrics["episodes"] = {k: v.reshape((-1,) + tuple(v.shape[2:]))
@@ -318,7 +419,7 @@ def train_iteration(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs,
 
 def train_chunk(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs, generator,
                 n_iters, se_penalty_coef=0.0, min_perf_fraction=1.0,
-                device="cuda"):
+                device="cuda", lanes=None):
     """``n_iters`` iterations. The episode records and side-effect samples
     are concatenated over the chunk; the scalar metrics are the last
     iteration's."""
@@ -326,7 +427,7 @@ def train_chunk(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs, generator,
     for _ in range(n_iters):
         ppo_state, ws, obs, metrics = train_iteration(
             env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs, generator,
-            se_penalty_coef, min_perf_fraction, device=device)
+            se_penalty_coef, min_perf_fraction, device=device, lanes=lanes)
         runs.append(metrics)
     metrics = dict(runs[-1])
     for key in ("episodes", "ep_samples"):

@@ -24,16 +24,20 @@ from ..core import scoring
 from ..env import env as E
 from ..env.state import level_metadata, pack_levels
 from ..loggers import combined_score
+from ..parallel.mesh import draw_global
 from ..side_effects import batched_occupancy, episode_side_effects
 from ..utils.device import resolve_device
 
 
-def sample_actions(policy, generator):
+def sample_actions(policy, generator, lanes=None):
     """int64 [N] draws from probabilities [N, 9]: a categorical over
     ``log(p + 1e-30)`` by the Gumbel-max trick, with uniforms from
-    ``generator``."""
+    ``generator``. With a rank's ``lanes`` the rows are its lanes' (agents
+    flattened) and the uniforms are drawn at the global shape and cut."""
     logits = torch.log(policy + 1e-30)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = draw_global(lambda s: torch.rand(s, generator=generator,
+                                         device=logits.device),
+                    logits.shape, lanes)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
@@ -44,15 +48,18 @@ def sample_actions(policy, generator):
 EPSILON_TESTING = 0.01
 
 
-def epsilon_greedy(qvals, epsilon, generator):
+def epsilon_greedy(qvals, epsilon, generator, lanes=None):
     """int64 [N] actions from Q-values [N, n]: the argmax, or with
     probability ``epsilon`` a uniform action, with draws from
-    ``generator``."""
+    ``generator`` (at the global shape, cut to ``lanes``, as
+    :func:`sample_actions`)."""
     greedy = torch.argmax(qvals, dim=-1)
-    rand = torch.randint(0, qvals.shape[-1], greedy.shape,
-                         generator=generator, device=qvals.device)
-    explore = torch.rand(greedy.shape, generator=generator,
-                         device=qvals.device) < epsilon
+    rand = draw_global(
+        lambda s: torch.randint(0, qvals.shape[-1], s, generator=generator,
+                                device=qvals.device), greedy.shape, lanes)
+    explore = draw_global(
+        lambda s: torch.rand(s, generator=generator, device=qvals.device),
+        greedy.shape, lanes) < epsilon
     return torch.where(explore, rand, greedy)
 
 

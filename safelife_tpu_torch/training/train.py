@@ -1,14 +1,13 @@
 """Training-loop orchestration (the reference's ``start-training.py``).
 
-Port of ``safelife_tpu/training/train.py`` in one process:
+Port of ``safelife_tpu/training/train.py``:
 ``build_model`` (``:28-56``), ``load_for_eval`` (``:59-73``),
 ``_sampled_side_effects`` (``:76-103``), ``_exhaustive_side_effects``
 (``:106-139``), ``_summarize_se_map`` (``:142-151``),
 ``_maybe_record_best_episode`` (``:161-181``), ``_restore_latest``
-(``:184-262``), ``train_ppo`` (``:265-446``, without the mesh; its report
-is :func:`_report` here), ``train_dqn`` (``:449-573``, without the mesh;
-its report is :func:`_report_dqn`), ``run_validation`` (``:576-585``) and
-``run_benchmark`` (``:588-604``).
+(``:184-262``), ``train_ppo`` (``:265-446``; its report is :func:`_report`
+here), ``train_dqn`` (``:449-573``; its report is :func:`_report_dqn`),
+``run_validation`` (``:576-585``) and ``run_benchmark`` (``:588-604``).
 
 Around the PPO iteration (:mod:`.ppo`) or the DQN collect-and-optimize
 unit (:mod:`.dqn`), both with kernels K1-K3 on CUDA, the loop runs
@@ -18,6 +17,17 @@ level-pool refreshes that never touch a slot a live lane is on. Where the
 JAX package takes (``model``, ``params``, ``key``), these take the
 network, which holds its parameters, and a ``torch.Generator`` on the
 run's device.
+
+Multi-process runs (``torchrun``, :mod:`..parallel.mesh`) train one
+global program: ``batch_size`` is the global lane count, which must divide
+over the ranks; each rank steps its own lanes, the learner is replicated,
+and the run equals the one-process run with the same batch. The finished
+episodes are gathered and logged by rank 0 alone; rank 0 alone writes the
+checkpoints (the global env state, gathered, and the global pool), the
+reports' scalars and runs the validation, while the others wait. Work
+that rank 0 alone draws random numbers for is followed by its generator's
+state on every rank (``sync_generator``). Every rank logs each report's
+``pcheck``, which must agree bitwise.
 """
 
 import dataclasses
@@ -30,6 +40,7 @@ import torch
 from ..env import env as E, wrappers as W
 from ..loggers import EpisodeCollector, SafeLifeLogger, summarize_run
 from ..models.nets import SafeLifePolicyNetwork, SafeLifeQNetwork
+from ..parallel import mesh as M
 from ..side_effects import side_effect_score, weighted_side_effect_total
 from ..utils.device import resolve_device
 from . import dqn, ppo, runner
@@ -200,6 +211,16 @@ def _checkpoint_state(learner, ws, pool):
     return state
 
 
+def _slice_lanes(obj, lanes):
+    """Lanes ``lanes.start``..``lanes.stop`` of every tensor of a state
+    dataclass."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _slice_lanes(getattr(obj, f.name), lanes)
+            for f in dataclasses.fields(obj)})
+    return obj[lanes.start:lanes.stop]
+
+
 def _restore_latest(ckpt, pstate, ws, bundle, device):
     """Restore the latest checkpoint into a training loop (PPO or DQN).
 
@@ -207,7 +228,9 @@ def _restore_latest(ckpt, pstate, ws, bundle, device):
     ``num_steps``) is restored in place. The env state and the level pool
     its lanes index into are restored together when the saved env state
     has this run's shapes; otherwise (batch size or wrapper changed) the
-    run resumes the learner only, with fresh episodes and levels.
+    run resumes the learner only, with fresh episodes and levels. In a
+    multi-process run the saved env state is the global batch, of which
+    each rank takes its lanes.
 
     Returns ``(ws, obs, extra, step)``: ``obs`` is None unless the env
     state was restored, ``step`` None when there is no checkpoint.
@@ -227,6 +250,11 @@ def _restore_latest(ckpt, pstate, ws, bundle, device):
     pstate.num_steps = int(state["num_steps"])
     obs = None
     saved = state.get("env_state")
+    lanes = _rank_lanes(ws.env.board.shape[0] * M.process_count())
+    if saved is not None and lanes is not None:
+        whole = [((lanes.total,) + s[1:], d) for s, d in _leaf_shapes(ws)]
+        if _leaf_shapes(saved) == sorted(whole):
+            saved = _slice_lanes(saved, lanes)
     if saved is not None and _leaf_shapes(saved) != _leaf_shapes(ws):
         logger.warning(
             "checkpoint env state does not match this run's shapes "
@@ -253,9 +281,55 @@ def _pcheck(model):
     return float(np.abs(flat.cpu().numpy().astype(np.float64)).sum())
 
 
+def _rank_lanes(batch_size):
+    """The rank's lanes of a multi-process run, None in one process;
+    raises unless ``batch_size`` divides over the ranks."""
+    if M.training_group() is None:
+        return None
+    return M.lane_range(batch_size)
+
+
+def _gather_samples(ep_samples):
+    """The side-effect sample of each step ([T, ...] on each rank) that a
+    one-process run takes: the first rank's whose sample ``found`` an
+    episode, else rank 0's."""
+    parts = {k: torch.stack(M.all_gather(v))
+             for k, v in ep_samples.items()}
+    first = torch.argmax(parts["found"].to(torch.int32), 0)
+    rows = torch.arange(first.shape[0], device=first.device)
+    return {k: v[first, rows] for k, v in parts.items()}
+
+
+def _episode_records(records, lanes):
+    """A chunk's episode records ([U*T*b, ...] on each rank, steps
+    outermost) as host arrays of the global batch's ([U*T*B, ...]), in
+    the one-process order."""
+    if lanes is not None:
+        records = {k: v.reshape((-1, lanes.size) + tuple(v.shape[1:]))
+                   for k, v in records.items()}
+        records = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in
+                   M.gather_episodes(records, 1).items()}
+    return {k: v.cpu().numpy() for k, v in records.items()}
+
+
+def _save_checkpoint(ckpt, step, learner, ws, pool, extra, lanes,
+                     force=False):
+    """Save a checkpoint when one is due (or ``force``): in a multi-process
+    run every rank gathers the env state and rank 0 alone writes the
+    global state, then every rank waits for it."""
+    if not (force or ckpt.due(step)):
+        return
+    if lanes is not None:
+        ws = M.gather_episodes(ws, 0)
+    if M.is_logging_host():
+        ckpt.save(step, _checkpoint_state(learner, ws, pool), extra)
+    M.barrier()
+
+
 def _report(bundle, pstate, metrics, ep_samples, se_map, generator, rate):
-    """One report: the log line with the parameters' ``pcheck``, and the
-    scalars with side-effect telemetry to the training logger."""
+    """One report: the log line with the parameters' ``pcheck`` on every
+    rank, and on rank 0 the scalars with side-effect telemetry to the
+    training logger."""
     n = pstate.num_steps
     m = {k: float(v) for k, v in metrics.items()}
     logger.info(
@@ -263,6 +337,8 @@ def _report(bundle, pstate, metrics, ep_samples, se_map, generator, rate):
         "pcheck=%.17g",
         n, m["loss"], m["entropy"], m["reward_mean"], rate,
         _pcheck(pstate.model))
+    if not M.is_logging_host():
+        return
     if bundle.wrapper_cfg.exhaustive_se:
         se = _summarize_se_map(se_map)
     else:
@@ -289,6 +365,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
     run resumes from its latest checkpoint and saves at the end.
     """
     dev = resolve_device(device)
+    lanes = _rank_lanes(batch_size)
     ppo_cfg = build_config(ppo.PPOConfig, "ppo")
     if report_interval is None:
         report_interval = ppo_cfg.report_interval
@@ -305,7 +382,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
     pool = bundle.pool_manager.pool
     ws, obs = W.reset(env_cfg, wcfg, pool, batch_size,
                       min_perf_fraction=bundle.exit_difficulty_schedule(),
-                      device=dev)
+                      device=dev, lanes=lanes)
     ckpt = data_dir and CheckpointManager(
         data_dir, interval=checkpoint_interval)
     if ckpt:
@@ -322,6 +399,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
     collector = EpisodeCollector(
         bundle.training_logger,
         level_meta=bundle.pool_manager.level_meta())
+    logging_host = M.is_logging_host()
     se_map = {}
     steps_per_iter = ppo_cfg.steps_per_env * batch_size
     next_report = report_interval
@@ -335,21 +413,28 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
             iters_per_chunk,
             se_penalty_coef=bundle.se_penalty_schedule(),
             min_perf_fraction=bundle.exit_difficulty_schedule(),
-            device=dev)
-        episodes = {k: v.cpu().numpy()
-                    for k, v in metrics.pop("episodes").items()}
+            device=dev, lanes=lanes)
+        episodes = _episode_records(metrics.pop("episodes"), lanes)
         ep_samples = metrics.pop("ep_samples")
         if wcfg.exhaustive_se:
             # Every lane's records: rows flattened as the episode records
             # are, so a row index names the same episode in both.
+            if lanes is not None:
+                ep_samples = M.gather_episodes(ep_samples, 1)
             ep_samples = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                           for k, v in ep_samples.items()}
-            se_map = _exhaustive_side_effects(ep_samples, bundle, env_cfg,
-                                              generator)
-            collector.side_effects_fn = \
-                lambda lane, info: se_map.get(int(lane))
+            if logging_host:
+                se_map = _exhaustive_side_effects(ep_samples, bundle,
+                                                  env_cfg, generator)
+                collector.side_effects_fn = \
+                    lambda lane, info: se_map.get(int(lane))
+        elif lanes is not None:
+            ep_samples = _gather_samples(ep_samples)
+        # The other ranks keep the curricula's view of the episodes
+        # without logging them.
         collector.observe(episodes,
-                          batch_steps=steps_per_iter * iters_per_chunk)
+                          batch_steps=steps_per_iter * iters_per_chunk,
+                          record_only=not logging_host)
         n = pstate.num_steps
         bundle.training_logger.cumulative_stats["training_steps"] = n
 
@@ -360,9 +445,9 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
         if ckpt:
             # ``pool`` is the pool this chunk's lanes stepped on (before
             # the refresh): a resume pairs them again.
-            ckpt.save_if_needed(
-                n, _checkpoint_state(pstate, ws, pool),
-                dict(bundle.training_logger.cumulative_stats))
+            _save_checkpoint(ckpt, n, pstate, ws, pool,
+                             dict(bundle.training_logger.cumulative_stats),
+                             lanes)
 
         if n >= next_report:
             next_report = (n // report_interval + 1) * report_interval
@@ -371,11 +456,17 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
 
         if bundle.validation_levels and n >= next_test:
             next_test = (n // test_interval + 1) * test_interval
-            run_validation(model, bundle, data_dir, generator, device=dev)
+            if logging_host:
+                run_validation(model, bundle, data_dir, generator,
+                               device=dev)
+            M.barrier()
+        if lanes is not None:
+            M.sync_generator(generator)
 
     if ckpt:
-        ckpt.save(pstate.num_steps, _checkpoint_state(pstate, ws, pool),
-                  dict(bundle.training_logger.cumulative_stats))
+        _save_checkpoint(ckpt, pstate.num_steps, pstate, ws, pool,
+                         dict(bundle.training_logger.cumulative_stats),
+                         lanes, force=True)
     return model, pstate
 
 
@@ -387,7 +478,8 @@ def _report_dqn(bundle, dstate, metrics):
     logger.info("n=%d: loss=%.3g eps=%.3f q=%.3g pcheck=%.17g", n,
                 m["loss"], m["epsilon"], m["q_model_mean"],
                 _pcheck(dstate.model))
-    bundle.training_logger.log_scalars(m, n, "dqn")
+    if M.is_logging_host():
+        bundle.training_logger.log_scalars(m, n, "dqn")
 
 
 def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
@@ -407,6 +499,7 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
     and saves at the end.
     """
     dev = resolve_device(device)
+    lanes = _rank_lanes(batch_size)
     cfg = build_config(dqn.DQNConfig, "dqn")
     if report_interval is None:
         report_interval = cfg.report_interval
@@ -419,10 +512,12 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
     pool = bundle.pool_manager.pool
     # One n-step ring per flattened lane x agent slot, in the env's
     # observation form.
+    local = batch_size if lanes is None else lanes.size
     dstate = dqn.init_dqn_state(
-        cfg, model, batch_size * pool.num_agents, obs_shape, obs_dtype,
+        cfg, model, local * pool.num_agents, obs_shape, obs_dtype,
         device=dev)
-    ws, obs = W.reset(env_cfg, wcfg, pool, batch_size, device=dev)
+    ws, obs = W.reset(env_cfg, wcfg, pool, batch_size, device=dev,
+                      lanes=lanes)
     ckpt = data_dir and CheckpointManager(
         data_dir, interval=checkpoint_interval)
     if ckpt:
@@ -443,11 +538,11 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
         pool = bundle.pool_manager.pool
         dstate, ws, obs, metrics = dqn.train_chunk(
             env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, chunk,
-            iters_per_chunk, device=dev)
-        episodes = {k: v.cpu().numpy()
-                    for k, v in metrics.pop("episodes").items()}
+            iters_per_chunk, device=dev, lanes=lanes)
+        episodes = _episode_records(metrics.pop("episodes"), lanes)
         collector.observe(episodes,
-                          batch_steps=chunk * batch_size * iters_per_chunk)
+                          batch_steps=chunk * batch_size * iters_per_chunk,
+                          record_only=not M.is_logging_host())
         n = dstate.num_steps
         bundle.training_logger.cumulative_stats["training_steps"] = n
         bundle.pool_manager.refresh(
@@ -455,15 +550,16 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
         if ckpt:
             # The chunk's own (pre-refresh) pool: the saved env state's
             # lanes resume against the levels they are mid-episode on.
-            ckpt.save_if_needed(
-                n, _checkpoint_state(dstate, ws, pool),
-                dict(bundle.training_logger.cumulative_stats))
+            _save_checkpoint(ckpt, n, dstate, ws, pool,
+                             dict(bundle.training_logger.cumulative_stats),
+                             lanes)
         if n >= next_report:
             next_report = (n // report_interval + 1) * report_interval
             _report_dqn(bundle, dstate, metrics)
     if ckpt:
-        ckpt.save(dstate.num_steps, _checkpoint_state(dstate, ws, pool),
-                  dict(bundle.training_logger.cumulative_stats))
+        _save_checkpoint(ckpt, dstate.num_steps, dstate, ws, pool,
+                         dict(bundle.training_logger.cumulative_stats),
+                         lanes, force=True)
     return model, dstate
 
 

@@ -3,15 +3,18 @@
 The card is the default: an entry point takes ``device="cuda"`` unless the
 caller asks for ``"cpu"``, and never carries on on the CPU when no card is
 there (there is no counterpart in ``safelife_tpu``, where JAX picks the
-backend).
+backend). Under ``torchrun`` (``LOCAL_RANK`` set) ``"cuda"`` is the rank's
+own card, ``cuda:LOCAL_RANK``.
 """
+
+import os
 
 import torch
 
 
 def resolve_device(device="cuda"):
     """``torch.device`` for ``device``; raises if CUDA is asked for and
-    absent."""
+    absent, or if ``LOCAL_RANK`` names a card this host lacks."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -19,6 +22,14 @@ def resolve_device(device="cuda"):
             "pass device='cpu' to run the plain PyTorch path" % str(device))
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r" % str(device))
+    if dev.type == "cuda" and dev.index is None \
+            and "LOCAL_RANK" in os.environ:
+        local = int(os.environ["LOCAL_RANK"])
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                "LOCAL_RANK %d but this host has %d CUDA device(s): one "
+                "rank a card" % (local, torch.cuda.device_count()))
+        dev = torch.device("cuda", local)
     return dev
 
 

@@ -312,3 +312,53 @@ def test_launch_shape(shape, batch, expected):
     block's boards fill whole warps where they can, within 1024 threads
     and, for more than one board, 48 KB."""
     assert P.launch_shape(*shape, batch) == expected
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_lane_offsets_slice_a_global_batch(stochastic):
+    """K1 and K2's plain versions on slices of a batch, each launched with
+    its first lane as ``lane_offset``, equal the whole batch's call; an
+    offset of 0 is the default's coins."""
+    rng = np.random.default_rng(21)
+    b, h, w = 12, 9, 11
+    board, locs = soup(rng, b, h, w, 2, spawners=True)
+    acts = torch.from_numpy(rng.integers(0, 9, (b, 2)).astype(np.int32))
+    flat = torch.from_numpy(board.reshape(b, h * w))
+    locs = torch.from_numpy(locs)
+    sp = torch.full((b,), 0.5)
+    seed = _seed(-123456789, 987654321)
+    kw = dict(h=h, w=w, stochastic=stochastic)
+    whole1 = P.fused_actions_advance(flat, locs, acts, sp, seed, **kw)
+    whole2 = P.advance(flat, sp, seed, **kw)
+    assert torch.equal(P.advance(flat, sp, seed, lane_offset=0,
+                                 cell_offset=0, **kw), whole2)
+    for lo, hi in ((0, 5), (5, 6), (6, 12)):
+        part1 = P.fused_actions_advance(flat[lo:hi], locs[lo:hi],
+                                        acts[lo:hi], sp[lo:hi], seed,
+                                        lane_offset=lo, **kw)
+        for got, ref in zip(part1, whole1):
+            assert torch.equal(got, ref[lo:hi])
+        assert torch.equal(P.advance(flat[lo:hi], sp[lo:hi], seed,
+                                     lane_offset=lo, **kw), whole2[lo:hi])
+    if stochastic:  # an offset draws other coins
+        shifted = P.advance(flat, sp, seed, lane_offset=1, **kw)
+        assert not torch.equal(shifted, whole2)
+
+
+def test_cell_offset_places_a_slab_at_its_cells():
+    """The coins of rows r-1 .. r+k of a board, drawn as a board of their
+    own at ``cell_offset = (r - 1) * W``, are the whole board's coins of
+    those rows (negative offsets wrap mod 2**32, as in the kernel)."""
+    h, w = 10, 7
+    seed = _seed(5, -6)
+    sp = torch.full((3,), 0.5)
+    whole = P.philox_bits(seed, 3, h * w, lane_offset=4).reshape(3, h, w)
+    for r, k in ((1, 3), (4, 5)):
+        slab = P.philox_bits(seed, 3, (k + 2) * w, lane_offset=4,
+                             cell_offset=(r - 1) * w).reshape(3, k + 2, w)
+        assert torch.equal(slab, whole[:, r - 1:r + k + 1])
+    wrapped = P.philox_bits(seed, 1, 2 * w, cell_offset=-w)
+    assert torch.equal(wrapped[:, w:], P.philox_bits(seed, 1, w))
+    coins = P.spawn_coins(seed, sp, 3, h * w, 4)
+    assert torch.equal(coins, (whole.reshape(3, -1) >> 8).to(torch.float32)
+                       * (1.0 / (1 << 24)) < 0.5)

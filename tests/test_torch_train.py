@@ -292,3 +292,67 @@ def test_cli_trains_resumes_and_benchmarks(tmp_path, monkeypatch):
     summary = json.loads(snap.stdout)
     assert summary["benchmark_episodes"] == 1
     assert summary["benchmark"]["reward"] == round(bench["reward"], 4)
+
+
+def _torchrun(argv, ranks=2):
+    """``torchrun --standalone --nproc-per-node <ranks> -m
+    safelife_tpu_torch <argv>``, one thread a rank, under a time limit;
+    its output (both ranks' lines, tagged ``[rank N]``)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ranks), "-m", "safelife_tpu_torch",
+         *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    return out.stdout + out.stderr
+
+
+def _rank_lines(log, marker):
+    """{rank: [lines containing ``marker``]} of a torchrun run's output."""
+    lines = {}
+    for line in log.splitlines():
+        if marker in line and line.startswith("[rank "):
+            rank = int(line[6:line.index("]")])
+            lines.setdefault(rank, []).append(line.split("] ", 1)[1])
+    return lines
+
+
+def _pchecks(log):
+    return {r: [ln.split("pcheck=")[1] for ln in v]
+            for r, v in _rank_lines(log, "pcheck=").items()}
+
+
+@pytest.mark.parametrize("algo", ["ppo", "dqn"])
+def test_torchrun_two_ranks_train_checkpoint_and_resume(tmp_path, algo):
+    """Two ranks of 2 lanes each (a global batch of 4) on the CPU over
+    ``gloo``: every report's ``pcheck`` is bitwise equal on both ranks;
+    rank 0 alone writes the one checkpoint, and both ranks restore it
+    when the run resumes."""
+    run = str(tmp_path / "run")
+    extra = {"env.pool_size": 4, "env.procgen_workers": 0}
+    steps = (1280, 1920)
+    if algo == "dqn":
+        extra.update(DQN_CONFIG)
+        steps = (2048, 3072)
+    argv = ["train", run, "--algo", algo, "--device", "cpu", "-e",
+            "append-still", "--seed", "3", "--batch", "4",
+            "--skip-benchmark", "-x", json.dumps(extra)]
+    log = _torchrun(argv + ["--steps", str(steps[0])])
+    first = _pchecks(log)
+    assert set(first) == {0, 1} and first[0] and first[0] == first[1]
+    ckpt = CheckpointManager(run)
+    assert ckpt.steps() == [steps[0]]
+    saved, _, _ = ckpt.restore(device="cpu")
+    assert saved["env_state"].env.board.shape[0] == 4  # the global batch
+    assert saved["pool"].board.shape[0] == 8  # both ranks' 4 slots
+
+    log = _torchrun(argv + ["--steps", str(steps[1])])
+    restored = _rank_lines(log, "restored checkpoint at step %d" % steps[0])
+    assert set(restored) == {0, 1}
+    second = _pchecks(log)
+    assert second[0] and second[0] == second[1]
+    assert ckpt.steps() == list(steps)
+    with open(os.path.join(run, "training.log")) as f:
+        text = f.read()
+    assert "[rank 0]" in text and "[rank 1]" not in text
