@@ -186,15 +186,34 @@ non-zero:
    more, the iteration under NCCL, one rank a card; otherwise it prints
    ``{"nccl_two_ranks": "not run: 1 card"}``.
 
+12. The bench verb and flax's init. ``python -m safelife_tpu_torch bench``
+   at its headline (append-still v1.0, 4096 lanes, 100-step chunks, a
+   warm-up and 20 timed ones, packed and channels views) as a subprocess:
+   one stdout line with ``metric``, ``value``, ``unit`` and
+   ``vs_baseline``, the sidecar (``runs/chip-smoke-bench-<pid>.json``)
+   with both modes, each mode's timed chunks launching K1 and K3 once a
+   step and K2 never, and K3 once at the reset. One bench chunk in this
+   process, launch counts zeroed just before and read just after (the
+   ``kernels`` line's ``launches_bench``). 64 lanes x 50 steps of the
+   bench's loop on the card and on the CPU under the same injected base
+   actions, on one append-still level with lanes timing out every 15
+   steps: every step's checksum and reward sum and the final boards bit
+   for bit, in both modes. Both networks built by ``train.build_model``
+   on the card under ``train.torch_init: false``: zero biases, weights
+   inside the truncation at two scales, each large layer's std within 5%
+   of sqrt(1 / fan_in).
+
 Between phases 9 and 10 it times each kernel form and its plain version
 at the shapes of the path that runs it (the main path's at B = 512 and
 4096, the large-board path's at B = 64), holding their outputs there
 against each other too, and prints, before the last line, the card's name and power limit as
-``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line. The
-last line is ``{"ok": true, "device": {...}}``.
+``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line (each
+form's ``launches`` on its path and ``launches_bench`` in phase 12's
+chunk). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -1776,7 +1795,6 @@ def check_pool_manager(dev, levels):
     ``in_use`` from it; no busy slot changes, the pool equals
     ``pack_levels`` of the manager's levels, the state steps on, and the
     pool and the state round-trip through ``CheckpointManager``."""
-    import dataclasses
     import tempfile
 
     from safelife_tpu_torch.env import env as E
@@ -4107,6 +4125,210 @@ def run_phase_11(dev, tree, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the bench verb and train.torch_init: false
+
+BENCH_MODES = ("packed", "channels")
+#: The bench's defaults (``safelife_tpu_torch/bench.py``): lanes, steps a
+#: chunk, timed chunks.
+BENCH_BATCH, BENCH_SCAN, BENCH_REPS = 4096, 100, 20
+BENCH_CPU_LANES = 64
+BENCH_CPU_STEPS = 50
+#: A time limit that resets the one-level pool's lanes inside the card vs
+#: CPU window, so that the reset merge is compared too.
+BENCH_CPU_TIME_LIMIT = 15
+#: flax's init: each weight layer's std within this of sqrt(1 / fan_in)
+#: on layers of 4096 weights or more.
+INIT_STD_REL = 0.05
+
+
+def bench_launches(what, launches, steps, resets=0):
+    """The bench's launches: K1 and K3 once a step (K3 once more a
+    reset), K2 never (append-still: static goals, no spawners), no global
+    form (26x26 boards)."""
+    want = {k: v for k, v in (("fused_actions_advance", steps),
+                              ("recenter_views", steps + resets)) if v}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError("%s: launches %s, want %s" % (what, got, want))
+
+
+def run_bench_cli(card):
+    """``python -m safelife_tpu_torch bench`` at its headline (4096 lanes,
+    both modes) as a user runs it: one stdout line with the four keys,
+    both modes in the sidecar, each mode's launches those of its steps."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sidecar = os.path.join(root, "runs", "chip-smoke-bench-%d.json"
+                           % os.getpid())
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "safelife_tpu_torch", "bench", "--sidecar",
+         sidecar], cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError("bench verb exited %d:\n%s"
+                             % (out.returncode, out.stderr[-4000:]))
+    lines = out.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError("bench verb printed %d stdout lines: %r"
+                             % (len(lines), out.stdout[-2000:]))
+    head = json.loads(lines[0])
+    if sorted(head) != ["metric", "unit", "value", "vs_baseline"]:
+        raise AssertionError("bench line keys %s" % sorted(head))
+    with open(sidecar) as f:
+        modes = json.load(f)
+    if sorted(modes) != sorted(BENCH_MODES):
+        raise AssertionError("bench sidecar modes %s" % sorted(modes))
+    for mode, r in modes.items():
+        bench_launches("bench %s (timed chunks)" % mode, r["launches"],
+                       BENCH_SCAN * BENCH_REPS)
+        bench_launches("bench %s (reset)" % mode, r["reset_launches"], 0, 1)
+        if not r["value"] > 0 or r["steps"] != \
+                BENCH_BATCH * BENCH_SCAN * BENCH_REPS:
+            raise AssertionError("bench %s: %s" % (mode, r))
+    if head["value"] != modes["packed"]["value"]:
+        raise AssertionError("bench headline is not the packed mode")
+    for mode in BENCH_MODES:
+        r = modes[mode]
+        log("bench (phase 12) %s: %s env-steps/s (vs_baseline %s), build_s "
+            "%.3f, warmup_s %.3f, timed %.3f s; launches %s, at reset %s; "
+            "the verb's process %.1f s  [%s]"
+            % (mode, r["value"], r["vs_baseline"], r["build_s"],
+               r["warmup_s"], r["seconds"], json.dumps(r["launches"]),
+               json.dumps(r["reset_launches"]), wall, card))
+    return modes
+
+
+def bench_chunk_launches(dev):
+    """One chunk of the bench's loop at its headline, in this process:
+    launch counts zeroed just before ``run_chunk`` and read just after."""
+    from safelife_tpu_torch import bench, ops
+
+    pool = bench.load_pool(dev)
+    run = bench.setup(pool, "packed", BENCH_BATCH)
+    ops.reset_launch_counts()
+    rsum = bench.run_chunk(run, BENCH_SCAN)
+    torch.cuda.synchronize(dev)
+    launches = ops.launch_counts()
+    bench_launches("bench chunk", launches, BENCH_SCAN)
+    if not torch.isfinite(rsum):
+        raise AssertionError("bench chunk: reward sum %s" % rsum)
+    return launches
+
+
+def check_bench_against_cpu(dev, card):
+    """64 lanes x 50 steps of the bench's loop on the card and on the CPU
+    under the same injected base actions, on a one-level pool of
+    append-still (every auto-reset picks the same level on both) with lanes
+    timing out every 15 steps: every step's checksum and reward sum and the
+    final boards, bit for bit, in both modes."""
+    from safelife_tpu_torch import bench
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.io.levels import load_levels
+
+    level = load_levels(bench.LEVELS)[:1]
+    rng = np.random.default_rng(12)
+    bases = rng.integers(0, 9, (BENCH_CPU_STEPS, BENCH_CPU_LANES, 1),
+                         dtype=np.int32)
+    for mode in BENCH_MODES:
+        out = []
+        for where in (dev, torch.device("cpu")):
+            feed = iter(torch.as_tensor(b, device=where) for b in bases)
+            run = bench.setup(pack_levels(level, device=where), mode,
+                              BENCH_CPU_LANES,
+                              draw=lambda feed=feed: next(feed))
+            run.cfg = dataclasses.replace(run.cfg,
+                                          time_limit=BENCH_CPU_TIME_LIMIT)
+            sums, checks = [], []
+            for _ in range(BENCH_CPU_STEPS):
+                reward, check, _ = bench.step(run)
+                sums.append(reward.sum())
+                checks.append(check)
+            out.append((torch.stack(sums).cpu().numpy(),
+                        torch.stack(checks).cpu().numpy(),
+                        run.state.board.cpu().numpy(),
+                        run.state.num_steps.cpu().numpy()))
+        card_out, cpu_out = out
+        for name, a, b in zip(("reward sums", "checksums", "boards",
+                               "step counts"), card_out, cpu_out):
+            if not np.array_equal(a, b):
+                raise AssertionError("bench %s: %s differ card vs CPU"
+                                     % (mode, name))
+        if not (card_out[3].max() < BENCH_CPU_TIME_LIMIT
+                and card_out[0].any()):
+            raise AssertionError("bench %s: no reset or no reward in the "
+                                 "window" % mode)
+    log("bench (phase 12): %d lanes x %d steps, card vs CPU under the same "
+        "base actions: reward sums, checksums and boards bit for bit in %s"
+        "  [%s]" % (BENCH_CPU_LANES, BENCH_CPU_STEPS, "/".join(BENCH_MODES),
+                    card))
+
+
+def check_flax_init(dev, card):
+    """Both networks built by ``train.build_model`` on the card with
+    ``train.torch_init: false``: zero biases, every weight inside the cut
+    at two scales, each layer of 4096 weights or more with its std within
+    INIT_STD_REL of sqrt(1 / fan_in) (the truncated normal's own)."""
+    import types
+
+    from safelife_tpu_torch.env.env import EnvConfig
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+    from safelife_tpu_torch.training import train as T
+    from safelife_tpu_torch.training.global_config import config
+
+    bundle = types.SimpleNamespace(
+        env_cfg=EnvConfig(view_shape=VIEW, output_channels=None),
+        packed_obs=True, obs_channels=TRAINING_CHANNELS)
+    worst = {}
+    for algo in ("ppo", "dqn"):
+        fresh_cli_state()
+        config["train.torch_init"] = False
+        torch.manual_seed(0)
+        model = T.build_model(bundle, algo, device=dev)[0]
+        for name, p in model.named_parameters():
+            if p.device != dev:
+                raise AssertionError("init: %s on %s" % (name, p.device))
+            w = p.detach().double()
+            if name.endswith("bias"):
+                if w.any():
+                    raise AssertionError("init %s: %s not zero"
+                                         % (algo, name))
+                continue
+            fan_in = w[0].numel()
+            scale = fan_in ** -0.5 / 0.87962566103423978
+            if w.abs().max().item() > 2 * scale * (1 + 1e-6):
+                raise AssertionError("init %s: %s past the cut"
+                                     % (algo, name))
+            if w.numel() >= 4096:
+                rel = abs(w.std().item() * fan_in ** 0.5 - 1)
+                worst["%s.%s" % (algo, name)] = rel
+                if rel > INIT_STD_REL:
+                    raise AssertionError("init %s: %s std off by %.3f"
+                                         % (algo, name, rel))
+    fresh_cli_state()
+    log("train.torch_init false (phase 12): both networks on the card, zero "
+        "biases, weights inside 2 scales, std of sqrt(1/fan_in) within %s "
+        "(largest %.4f, %s)  [%s]"
+        % (INIT_STD_REL, max(worst.values()), max(worst, key=worst.get),
+           card))
+
+
+def run_phase_12(dev, card):
+    """Phase 12: the bench verb at its headline, one bench chunk's
+    launches in this process, the bench's loop card vs CPU, and flax's
+    init on the card."""
+    t0 = time.perf_counter()
+    out = {"modes": run_bench_cli(card)}
+    out["launches"] = bench_chunk_launches(dev)
+    check_bench_against_cpu(dev, card)
+    check_flax_init(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 12: %.1f s" % out["seconds"])
+    return out
+
+
 KERNELS = {
     "fused_actions_advance": ("safelife_tpu_torch/ops/csrc/physics.cu",
                               "safelife_tpu/ops/physics.py:296",
@@ -4255,6 +4477,9 @@ def main():
 
     # Phase 11
     ranked = run_phase_11(dev, tree, card)
+
+    # Phase 12
+    benched = run_phase_12(dev, card)
     log("main path per step: %s" % json.dumps(
         {k: v / (2 * STEPS) for k, v in launches.items()}))
     log("trainer (phase 7): start-up pool %s s at %s lanes; CLI run at %d "
@@ -4314,6 +4539,10 @@ def main():
            modes["oracle_us"], card))
     log("phase 11 (multi-process) %.1f s; NCCL over two cards: %s  [%s]"
         % (ranked["seconds"], ranked["nccl_two_ranks"], card))
+    log("bench (phase 12): %s  [%s]" % ("; ".join(
+        "%s %s env-steps/s, build_s %.3f, warmup_s %.3f"
+        % (m, r["value"], r["build_s"], r["warmup_s"])
+        for m, r in benched["modes"].items()), card))
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []
@@ -4325,6 +4554,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path[name],
+            "launches_bench": benched["launches"][name],
             "max_abs_err": max(errs[name], t["err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

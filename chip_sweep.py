@@ -2,10 +2,10 @@
 call, on one CUDA card.
 
     python3 chip_sweep.py [physics] [views] [host] [learner] [learner-4096]
-                          [procgen] [ranks]
+                          [procgen] [ranks] [bench]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all seven parts). It imports torch and the port only, prints
+argument runs all eight parts). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -45,6 +45,11 @@ prune-dynamic boards:
   fault planted in the rank processes at run time: PPO's sample index
   shifted one lane, the rank's own weight in the sharded loss in place of
   the global one, DQN's sample index off by one, DQN's loss doubled.
+* ``bench``: ``python -m safelife_tpu_torch bench`` three times at its
+  headline (4096 lanes, packed and channels views), each run its own
+  process with its launches checked as ``chip_smoke.py``'s phase 12 does,
+  then one 100-step chunk of each mode under the profiler: wall and device
+  busy time a step, and the top device operations.
 """
 
 import contextlib
@@ -405,12 +410,33 @@ def anneal_iteration_cost(dev, card, blocks=10):
               flush=True)
 
 
+BENCH_RUNS = 3
+
+
+def bench_rates(dev, card, runs=BENCH_RUNS):
+    """The bench verb ``runs`` times at its headline, each run its own
+    process (both modes, ``chip_smoke.run_bench_cli``: launches checked);
+    then one 100-step chunk of each mode in this process under the
+    profiler: wall and device-busy time a step, the device's share."""
+    from safelife_tpu_torch import bench
+
+    for _ in range(runs):
+        cs.run_bench_cli(card)
+    pool = bench.load_pool(dev)
+    for mode in cs.BENCH_MODES:
+        run = bench.setup(pool, mode, cs.BENCH_BATCH)
+        bench.run_chunk(run, cs.BENCH_SCAN).item()  # warm-up
+        cs.profile_window(lambda: bench.run_chunk(run, cs.BENCH_SCAN),
+                          "the bench's %s chunk at %d lanes" % (
+                              mode, cs.BENCH_BATCH), "step", cs.BENCH_SCAN)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
     parts = sys.argv[1:] or ["physics", "views", "host", "learner",
-                             "learner-4096", "procgen", "ranks"]
+                             "learner-4096", "procgen", "ranks", "bench"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -438,6 +464,8 @@ def main():
         anneal_iteration_cost(dev, card)
     if "ranks" in parts:
         rank_readings(dev, card)
+    if "bench" in parts:
+        bench_rates(dev, card)
     return 0
 
 

@@ -8,12 +8,14 @@ verbs
 * ``play``   — the interactive terminal (``--gl``: pygame) game.
 * ``new``    — generate levels and save them to disk.
 * ``render`` — render level files to png/gif/mp4.
+* ``bench``  — the headline env-steps/s benchmark (:mod:`.bench`, the
+  port of the root ``bench.py``, which JAX's verb runs, ``:99``,
+  ``:117-121``).
 
-``train`` and ``play`` take ``--device`` (``cuda`` unless ``cpu`` is asked
-for); ``_confirm_data_dir`` (``:124-159``), ``cmd_train`` (``:162-265``),
-``_iter_levels``, ``cmd_print``, ``cmd_new`` and ``cmd_render``
-(``:268-312``). Not ported: ``bench`` (JAX's ``bench.py``; the port's
-benchmark is for a later change) and ``--wandb`` (ROADMAP.md).
+``train``, ``play`` and ``bench`` take ``--device`` (``cuda`` unless
+``cpu`` is asked for); ``_confirm_data_dir`` (``:124-159``), ``cmd_train``
+(``:162-265``), ``_iter_levels``, ``cmd_print``, ``cmd_new`` and
+``cmd_render`` (``:268-312``). Not ported: ``--wandb`` (ROADMAP.md).
 
 Multi-process training replaces JAX's ``scripts/launch_multihost.py``
 with ``torchrun``: ``torchrun --nproc-per-node N -m safelife_tpu_torch
@@ -28,10 +30,13 @@ import os
 import sys
 import types
 
+from . import bench
+
 
 def main(argv=None):
     """Parse ``argv`` and run the verb. Returns what the verb returns
-    (``train``: the run's namespace; the others: None)."""
+    (``train``: the run's namespace; ``bench``: the results by mode; the
+    others: None)."""
     parser = argparse.ArgumentParser(prog="safelife_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -96,6 +101,9 @@ def main(argv=None):
     p_render.add_argument("--fmt", default=None,
                           choices=(None, "png", "gif", "mp4"))
 
+    bench.add_arguments(sub.add_parser(
+        "bench", help="headline env-steps/s on append-still (4096 lanes)"))
+
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -110,6 +118,8 @@ def main(argv=None):
         return play_cmd(args)
     if args.cmd == "new":
         return cmd_new(args)
+    if args.cmd == "bench":
+        return bench.run(args)
     return cmd_render(args)
 
 

@@ -7,7 +7,9 @@ Port of ``safelife_tpu/models/nets.py``: ``PRECISIONS`` (``:28-41``),
 ``unpack_obs`` (``:74-81``),
 ``SafeLifeCNN`` (``:84-101``), ``cnn_output_features`` (``:104-113``),
 ``SafeLifePolicyNetwork`` (``:116-146``) and ``SafeLifeQNetwork``
-(``:149-171``, two dense-256 dueling heads).
+(``:149-171``, two dense-256 dueling heads). The layers keep torch's own
+init, the JAX package's default (``train.torch_init``, ``:44-71``);
+:func:`flax_init_` gives them flax's instead.
 
 Inputs keep the JAX package's layout: NHWC float observations
 [N, vh, vw, C], or packed int32 views [N, vh, vw] when ``unpack_channels``
@@ -46,6 +48,11 @@ TRAINING_CHANNELS = (
 HIDDEN_WIDTH = 512
 Q_HIDDEN_WIDTH = 256
 NUM_ACTIONS = 9
+
+#: The standard deviation of a unit normal truncated at +-2, by which
+#: flax's ``lecun_normal`` divides its scale so that the truncated draw
+#: keeps the variance 1 / fan_in (``jax.nn.initializers.variance_scaling``).
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 #: The JAX package's precision names (``safelife_tpu/models/nets.py:28-41``)
@@ -89,6 +96,26 @@ def learner_precision(precision, device_type="cuda"):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def flax_init_(net):
+    """Re-draw every layer of ``net`` with flax's default init, what the
+    JAX package's networks get under ``train.torch_init: false``
+    (``safelife_tpu/models/nets.py:66-71``): ``lecun_normal`` weights, a
+    normal of scale sqrt(1 / fan_in) / 0.8796 truncated at two of its
+    scales, and zero biases. ``fan_in`` is kh * kw * in for a
+    convolution (weights [out, in, kh, kw]) and ``in`` for a dense layer.
+    The draws come from torch's default generator on the layers' device.
+    Returns ``net``."""
+    with torch.no_grad():
+        for layer in net.modules():
+            if isinstance(layer, (nn.Conv2d, nn.Linear)):
+                fan_in = layer.weight[0].numel()
+                std = fan_in ** -0.5 / _TRUNCATED_NORMAL_STD
+                nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std,
+                                      2 * std)
+                nn.init.zeros_(layer.bias)
+    return net
 
 
 def unpack_obs(obs, channels):

@@ -39,7 +39,8 @@ import torch
 
 from ..env import env as E, wrappers as W
 from ..loggers import EpisodeCollector, SafeLifeLogger, summarize_run
-from ..models.nets import SafeLifePolicyNetwork, SafeLifeQNetwork
+from ..models.nets import (SafeLifePolicyNetwork, SafeLifeQNetwork,
+                           flax_init_)
 from ..parallel import mesh as M
 from ..side_effects import side_effect_score, weighted_side_effect_total
 from ..utils.device import resolve_device
@@ -61,26 +62,29 @@ def build_model(bundle, algo="ppo", device="cuda"):
     takes the env's uint8 channels [vh, vw, C].
 
     The network runs in ``train.precision`` (``models/nets.py::
-    PRECISIONS``; an unknown name raises) with torch's own layer init:
-    ``train.torch_init: false`` (the JAX package's flax init) raises.
+    PRECISIONS``; an unknown name raises) with torch's own layer init, or
+    flax's under ``train.torch_init: false`` (``nets.flax_init_``). Its
+    draws come from torch's default generators, which the trainers seed.
     """
     nets = {"ppo": SafeLifePolicyNetwork, "dqn": SafeLifeQNetwork}
     if algo not in nets:
         raise ValueError("unknown algo %r" % algo)
     precision = config.setdefault("train.precision", "float32")
-    if not config.setdefault("train.torch_init", True):
-        raise ValueError("train.torch_init: false asks for flax's init; the "
-                         "port has torch's own layer init only")
+    torch_init = config.setdefault("train.torch_init", True)
     view = tuple(bundle.env_cfg.view_shape)
     if bundle.packed_obs:
         model = nets[algo](view_shape=view,
                            unpack_channels=bundle.obs_channels,
                            device=device, precision=precision)
-        return model, view, torch.int32
-    n_ch = len(bundle.env_cfg.output_channels)
-    model = nets[algo](view_shape=view, num_channels=n_ch, device=device,
-                       precision=precision)
-    return model, view + (n_ch,), torch.uint8
+        shape, dtype = view, torch.int32
+    else:
+        n_ch = len(bundle.env_cfg.output_channels)
+        model = nets[algo](view_shape=view, num_channels=n_ch,
+                           device=device, precision=precision)
+        shape, dtype = view + (n_ch,), torch.uint8
+    if not torch_init:
+        flax_init_(model)
+    return model, shape, dtype
 
 
 def load_for_eval(algo, bundle, data_dir, device="cuda"):

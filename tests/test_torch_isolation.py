@@ -44,9 +44,10 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, started, lib, bad = out.stdout.strip().split(" ", 3)
-    # 54 modules, training.dqn, the front end, the device annealer, the
-    # oracle's generator and the multi-process package among them.
-    assert int(n) >= 54
+    # 55 modules, training.dqn, the front end, the device annealer, the
+    # oracle's generator, the multi-process package and the bench among
+    # them.
+    assert int(n) >= 55
     assert {"safelife_tpu_torch.training.dqn", "safelife_tpu_torch.game",
             "safelife_tpu_torch.registry", "safelife_tpu_torch.interactive",
             "safelife_tpu_torch.interactive_gl",
@@ -56,7 +57,8 @@ def test_no_jax_and_no_reference_package_imported():
             "safelife_tpu_torch.procgen.batched",
             "safelife_tpu_torch.core.pcg64",
             "safelife_tpu_torch.parallel.mesh",
-            "safelife_tpu_torch.parallel.spatial"} <= _modules()
+            "safelife_tpu_torch.parallel.spatial",
+            "safelife_tpu_torch.bench"} <= _modules()
     assert bad == "[]"
     # Importing builds nothing: no compiler started, no library loaded.
     assert started == "0" and lib == "None"

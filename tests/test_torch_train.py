@@ -134,8 +134,8 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     ``env.packed_obs: false`` with ``train.precision`` bfloat16 (uint8
     channels into a bfloat16 learner) and ``env.device_procgen`` (the
     start-up pool and its refills from the device annealer); --algo dqn
-    trains, resumes and benchmarks. ``train.torch_init: false`` and an
-    unknown task still raise."""
+    trains, resumes and benchmarks; ``train.torch_init: false`` (flax's
+    init) trains. An unknown task still raises."""
     from safelife_tpu_torch.procgen import batched as TB
 
     run = str(tmp_path / "channels")
@@ -173,10 +173,18 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     _fresh()
     with pytest.raises(ValueError, match="not a recognized task"):
         CLI.main(["train", "-e", "no-such-task", "--device", "cpu"])
-    _fresh()
-    TGC.config["train.torch_init"] = False
-    with pytest.raises(ValueError, match="torch_init"):
-        TT.build_model(None, device="cpu")
+    # train.torch_init: false: flax's init (zero biases); the run trains.
+    out = _train(str(tmp_path / "flax-init"), 1280, extra=[
+        "--skip-benchmark", "-x", json.dumps({
+            "env.pool_size": 4, "env.procgen_workers": 0,
+            "train.torch_init": False})])
+    assert out.state.num_steps == 1280 and _params_finite(out.model)
+    assert TGC.config["train.torch_init"] is False
+    for algo in ("ppo", "dqn"):
+        model = TT.build_model(out.bundle, algo, device="cpu")[0]
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                assert not p.any(), name
 
 
 CPU = ["--device", "cpu", "-e", "append-still", "--seed", "3", "-x",
