@@ -1,11 +1,11 @@
 """The kernels over their block layouts, and the host cost of a kernel
 call, on one CUDA card.
 
-    python3 chip_sweep.py [physics] [views] [host] [learner] [learner-4096]
-                          [procgen] [ranks] [bench]
+    python3 chip_sweep.py [physics] [views] [host] [large] [learner]
+                          [learner-4096] [procgen] [ranks] [bench]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all eight parts). It imports torch and the port only, prints
+argument runs all nine parts). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -26,13 +26,26 @@ prune-dynamic boards:
   achievable-bandwidth yardstick (not a port of the function).
 * At B = 512, the host time of one wrapper call and of the parts of the
   launch path, in microseconds a call over 2000 calls.
+* ``large``: the tiled K1 and K2 (boards above ``MAX_CELLS``) over tile
+  layouts (columns a tile x rows a thread x walkers a column, within 1024
+  threads and the card's shared memory) at 192x192 with B in {1, 7, 64},
+  on the row-sharded advance's 98x192 slab and on 6x2100 at B = 1, each
+  through the wrappers (``ops.physics.tile_shape`` swapped for the
+  layout) and checked bit for bit, beside the layout ``tile_shape``
+  picks; the pick on every ``chip_smoke.LARGE_SHAPES`` board and the
+  98x192 slab at B = 1 and 7; then the card's launch floor on the profiler's clock (the fill
+  kernel of a one-element ``torch.zeros``) beside the staged forms at
+  512 lanes and K3's global-memory form (``time_kernels``).
 * ``learner``: the spread of ``chip_smoke.py``'s learner check (the PPO
   update on the card against the CPU path) over 48 batches of a 64-lane
   append-spawn training run, once in strict float32 and once with TF32
-  allowed for cuBLAS and cuDNN: the loss, gradient and parameter
-  differences that the check bounds. ``learner-4096``: the same over 6
-  batches of a 4096-lane run (minibatches of 16,384 samples, where cuDNN
-  takes other convolution engines).
+  allowed for cuBLAS and cuDNN: the loss and gradient differences of the
+  first minibatch, whole and over the samples whose ReLUs and clips take
+  the same branch on both devices, the samples excluded, the parameters
+  after the update, and the bounds each reading misses.
+  ``learner-4096``: the first minibatch's readings over 20 batches of a
+  4096-lane run (minibatches of 16,384 samples, where cuDNN takes other
+  convolution engines), the CPU side computed once a batch.
 * ``procgen``: the device annealer's lockstep iteration
   (``procgen/anneal_device.py``) at 8, 64 and 256 chains on 26x26 boards
   whose chains never converge: milliseconds an iteration run eagerly and
@@ -227,10 +240,14 @@ def host_cost(dev, pool, n=2000):
     return out
 
 
-def learner_spread(dev, card, lanes, n_batches):
-    """``cs.learner_diffs`` on successive batches of one training run of
-    ``lanes`` lanes, from the parameters that collected each batch, strict
-    and TF32."""
+def learner_spread(dev, card, lanes, n_batches, update):
+    """``chip_smoke.py``'s learner check on successive batches of one
+    training run of ``lanes`` lanes, from the parameters that collected
+    each batch, in strict float32 and in TF32 on the card against the
+    CPU: each reading whole and over the samples whose branches agree
+    (``cs.card_diffs``), with the bounds it misses; with ``update`` also
+    the 15 Adam steps (``cs.learner_diffs``), else the CPU side computed
+    once for both modes. Ends with each mode's spread."""
     import numpy as np
 
     from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
@@ -240,16 +257,174 @@ def learner_spread(dev, card, lanes, n_batches):
                                  len(TRAINING_CHANNELS), cs.VIEW)
     run = cs.training_setup(dev, load_levels(cs.TRAIN_LEVELS), tree, lanes,
                             seed=10)
+    cfg = ppo.PPOConfig()
+    cpu = torch.device("cpu")
+    modes = (("strict float32", "float32"), ("TF32", "tensorfloat32"))
+    spread = {mode: [] for mode, _ in modes}
     for i in range(n_batches):
         state = cs.model_state(run)
         batch = cs.rollout_batch(run)
-        for mode, precision in (("strict float32", "float32"),
-                                ("TF32", "tensorfloat32")):
-            r = cs.learner_diffs(dev, tree, state, batch, seed=12 + i,
-                                 precision=precision)
-            print("learner at %d lanes, batch %d, %s: %s  [%s]"
-                  % (lanes, i, mode, cs.learner_line(r), card), flush=True)
+        _, first = cs.first_indices(cfg, batch["obs"].shape[0], 12 + i)
+        ref = None
+        for mode, precision in modes:
+            if update:
+                r = cs.learner_diffs(dev, tree, state, batch, seed=12 + i,
+                                     precision=precision)
+                line = cs.learner_line(r)
+            else:
+                if ref is None:  # the CPU side, equal in both modes
+                    ref = cs.learner_side(
+                        cfg, cs.trained_policy(tree, state, cpu), batch,
+                        first)
+                r, _ = cs.card_diffs(
+                    cfg, cs.trained_policy(tree, state, dev, precision),
+                    batch, first, ref)
+                line = "%s; TF32 allowed in %d of %d layer runs" % (
+                    cs.exclusion_line(r), r["tf32_layer_runs"],
+                    r["layer_runs"])
+            missed = cs.learner_misses(r)
+            spread[mode].append((r, missed))
+            print("learner at %d lanes, batch %d, %s: %s; %s  [%s]"
+                  % (lanes, i, mode, line,
+                     "misses " + ", ".join(missed) if missed else "passes",
+                     card), flush=True)
         ppo.train_on_batch(run["pcfg"], run["ps"], batch, run["gen"])
+    for mode, rs in spread.items():
+        shares = [r["excluded"] / r["minibatch"] for r, _ in rs]
+        agree = [r["agree_grad_norm"] for r, _ in rs]
+        whole = [r["grad_norm"] for r, _ in rs]
+        print("learner at %d lanes, %s, %d batches: %d pass the check; "
+              "excluded share %.3e-%.3e, gradients over agreeing samples "
+              "%.3e-%.3e, over the whole minibatch %.3e-%.3e  [%s]"
+              % (lanes, mode, len(rs), sum(not m for _, m in rs),
+                 min(shares), max(shares), np.nanmin(agree),
+                 np.nanmax(agree), min(whole), max(whole), card), flush=True)
+
+
+#: Batches of the 4096-lane learner spread.
+LEARNER_4096_BATCHES = 20
+
+#: The tiled K1/K2 sweep: columns a tile, rows a thread, walkers a column.
+TILE_COLS = (32, 64, 96, 128, 192)
+TILE_ROWS_PER_THREAD = (4, 8, 12, 16)
+TILE_WALKERS = (1, 2, 3, 4, 8)
+#: (board, batch) cells of the sweep: the large-board path's, the
+#: row-sharded advance's slab, and a board cut into columns of tiles.
+TILE_CASES = (((192, 192), 1), ((192, 192), 7), ((192, 192), 64),
+              ((98, 192), 1), ((6, 2100), 1))
+
+
+@contextlib.contextmanager
+def tile_layout(cols, rows, walkers):
+    """Launch the tiled K1 and K2 with tiles of ``cols`` columns and
+    ``rows`` x ``walkers`` rows (each cut to the board), ``rows`` rows a
+    thread, while the context is open."""
+    picked = P.tile_shape
+
+    def forced(h, w, batch):
+        tr, tc = min(h, rows * walkers), min(w, cols)
+        return (tr, tc, rows, -(-tc // 32) * 32 * -(-tr // rows),
+                P.tile_smem_bytes(tr, tc))
+
+    P.tile_shape = forced
+    try:
+        yield forced
+    finally:
+        P.tile_shape = picked
+
+
+def large_tiles(dev, card):
+    """The tiled K1 and K2 over tile layouts (``TILE_*``) on ``TILE_CASES``
+    soups (one agent a board), each layout through the wrappers and
+    checked against the plain versions bit for bit, the profiler's device
+    time a launch beside ``ops.physics.tile_shape``'s pick; then the
+    card's launch floor on the same clock (a one-element ``torch.zeros``,
+    one fill kernel) beside the staged forms at 512 lanes and K3's
+    global-memory form (``cs.time_kernels``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    seed = torch.tensor([11, -12], dtype=torch.int32, device=dev)
+    for (h, w), b in TILE_CASES:
+        board, locs = cs.soup(rng, b, h, w, 1, spawners=True)
+        flat = torch.from_numpy(board.reshape(b, h * w)).to(dev)
+        locs = torch.from_numpy(locs).to(dev)
+        acts = torch.randint(0, 9, (b, 1), dtype=torch.int32, device=dev)
+        sp = torch.zeros(b, device=dev)
+        k = dict(h=h, w=w, stochastic=False)
+        ref1 = P.fused_actions_advance_plain(flat, locs, acts, sp, seed, **k)
+        ref2 = P.advance_plain(flat, sp, seed, **k)
+        print("%dx%d B=%d: tile_shape picks %s  [%s]"
+              % (h, w, b, P.tile_shape(h, w, b), card), flush=True)
+        seen = {}
+        for cols in TILE_COLS:
+            for rows in TILE_ROWS_PER_THREAD:
+                for walkers in TILE_WALKERS:
+                    with tile_layout(cols, rows, walkers) as shape:
+                        layout = shape(h, w, b)
+                        if layout in seen or layout[3] > 1024 \
+                                or layout[4] > P.MAX_SMEM_BYTES - 1024:
+                            continue
+                        t1 = cs.device_ms(
+                            lambda: P.fused_actions_advance(
+                                flat, locs, acts, sp, seed, **k),
+                            "physics_tiled_kernel")[0]
+                        t2 = cs.device_ms(
+                            lambda: P.advance(flat, sp, seed, **k),
+                            "advance_tiled_kernel")[0]
+                        got1 = P.fused_actions_advance(flat, locs, acts, sp,
+                                                       seed, **k)
+                        got2 = P.advance(flat, sp, seed, **k)
+                    cs.max_err(list(zip(got1, ref1)) + [(got2, ref2)])
+                    seen[layout] = (t1, t2)
+                    print("%dx%d B=%d tile %dx%d, %d rows a thread, %d "
+                          "threads, %d B shared: K1 %.5f ms, K2 %.5f ms, "
+                          "exact" % ((h, w, b) + layout[:2] + layout[2:]
+                                     + (t1, t2)), flush=True)
+        for i, name in ((0, "K1"), (1, "K2")):
+            best = min(seen, key=lambda lay: seen[lay][i])
+            print("%dx%d B=%d: fastest %s layout %s, %.5f ms  [%s]"
+                  % (h, w, b, name, best, seen[best][i], card), flush=True)
+        print("%dx%d B=%d: the pick %s: K1 %.5f ms, K2 %.5f ms  [%s]"
+              % (h, w, b, P.tile_shape(h, w, b), cs.device_ms(
+                  lambda: P.fused_actions_advance(flat, locs, acts, sp, seed,
+                                                  **k),
+                  "physics_tiled_kernel")[0], cs.device_ms(
+                  lambda: P.advance(flat, sp, seed, **k),
+                  "advance_tiled_kernel")[0], card), flush=True)
+    for (h, w), b in [(shape, b) for shape in cs.LARGE_SHAPES + ((98, 192),)
+                      for b in (1, 7)]:
+        board, locs = cs.soup(rng, b, h, w, 1, spawners=True)
+        flat = torch.from_numpy(board.reshape(b, h * w)).to(dev)
+        locs = torch.from_numpy(locs).to(dev)
+        acts = torch.randint(0, 9, (b, 1), dtype=torch.int32, device=dev)
+        sp = torch.zeros(b, device=dev)
+        k = dict(h=h, w=w, stochastic=False)
+        t1 = cs.device_ms(lambda: P.fused_actions_advance(
+            flat, locs, acts, sp, seed, **k), "physics_tiled_kernel")[0]
+        t2 = cs.device_ms(lambda: P.advance(flat, sp, seed, **k),
+                          "advance_tiled_kernel")[0]
+        cs.max_err(list(zip(
+            P.fused_actions_advance(flat, locs, acts, sp, seed, **k),
+            P.fused_actions_advance_plain(flat, locs, acts, sp, seed, **k)))
+            + [(P.advance(flat, sp, seed, **k),
+                P.advance_plain(flat, sp, seed, **k))])
+        print("%dx%d B=%d, tile_shape's pick %s: K1 %.5f ms, K2 %.5f ms, "
+              "exact  [%s]" % (h, w, b, P.tile_shape(h, w, b), t1, t2, card),
+              flush=True)
+    floor, how = cs.device_ms(lambda: torch.zeros(1, device=dev),
+                              "FillFunctor")
+    print("launch floor: one-element torch.zeros, %.5f ms a fill kernel "
+          "(%s)  [%s]" % (floor, how, card), flush=True)
+    pools = ((pack_levels(load_levels("benchmarks/v1.0/prune-dynamic.npz"),
+                          device=dev), cs.LANES),
+             (pack_levels(cs.large_levels(), device=dev), cs.LARGE_LANES))
+    for pool, b in pools:
+        for name, t in cs.time_kernels(dev, pool, b).items():
+            print("%-28s B=%-4d %.5f ms (%s), bound %.5f ms (%s), %.2f of "
+                  "the launch floor  [%s]"
+                  % (name, b, t["ms"], t["timed_by"], t["bound_ms"],
+                     t["bound_by"], t["ms"] / floor, card), flush=True)
 
 
 def plant_fault(fault):
@@ -435,8 +610,9 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
-    parts = sys.argv[1:] or ["physics", "views", "host", "learner",
-                             "learner-4096", "procgen", "ranks", "bench"]
+    parts = sys.argv[1:] or ["physics", "views", "host", "large",
+                             "learner", "learner-4096", "procgen", "ranks",
+                             "bench"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -456,10 +632,12 @@ def main():
               % (cs.LANES, json.dumps({k: round(v, 3)
                                        for k, v in host.items()}), card),
               flush=True)
+    if "large" in parts:
+        large_tiles(dev, card)
     if "learner" in parts:
-        learner_spread(dev, card, 64, 48)
+        learner_spread(dev, card, 64, 48, update=True)
     if "learner-4096" in parts:
-        learner_spread(dev, card, 4096, 6)
+        learner_spread(dev, card, 4096, LEARNER_4096_BATCHES, update=False)
     if "procgen" in parts:
         anneal_iteration_cost(dev, card)
     if "ranks" in parts:

@@ -9,8 +9,9 @@ These replace the three Pallas kernels of ``safelife_tpu/ops/``:
 A wrapper launches its kernel for CUDA tensors (building ``csrc/`` at first
 use, see :mod:`._build`) and runs its ``*_plain`` version for CPU tensors.
 Each kernel has two forms in its source, chosen by shape: the staged one,
-which works out of shared memory, and a global-memory one (``*_global``)
-for boards (and, for K3, views) too large to stage.
+which works out of shared memory on whole boards, and one for boards (and,
+for K3, views) too large to stage whole (``*_global``: K1 and K2 stage
+tiles of a board, K3 gathers from global memory).
 """
 
 from . import _build

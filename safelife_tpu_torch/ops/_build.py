@@ -29,16 +29,18 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: source file -> {C entry point: its argument types}. Each entry point
-#: launches one kernel form (the staged one, or the global-memory one for
-#: shapes too large to stage); each source also has ``<first entry>_error``.
+#: launches one kernel form (the staged one, or the form for shapes too
+#: large to stage whole: K1/K2 tiled, K3 from global memory; its entry
+#: point ends in ``_global``); each source also has
+#: ``<first entry>_error``.
 KERNELS = {
     "advance.cu": {
         "sl_advance": [_P] * 4 + [_I] * 9 + [_P],
-        "sl_advance_global": [_P] * 4 + [_I] * 7 + [_P],
+        "sl_advance_global": [_P] * 4 + [_I] * 10 + [_P],
     },
     "physics.cu": {
         "sl_fused_actions_advance": [_P] * 8 + [_I] * 9 + [_P],
-        "sl_fused_actions_advance_global": [_P] * 9 + [_I] * 7 + [_P],
+        "sl_fused_actions_advance_global": [_P] * 8 + [_I] * 10 + [_P],
     },
     "obs.cu": {
         "sl_recenter_views": [_P] * 7 + [_I] * 10 + [_P],

@@ -1,7 +1,8 @@
 // Shared device code of the SafeLife kernels K1 (physics.cu) and K2
 // (advance.cu): cell constants, the Philox4x32-10 spawn draw, the packed
 // cell word, the one-cell CA rule, and the block-level passes both kernels
-// are built from (staging copies and the separable CA step).
+// are built from (staging copies and the separable CA step, for whole
+// boards and for tiles of larger ones).
 //
 // The CA step computes what `_advance_block` computes in
 // safelife_tpu/ops/physics.py:128-175 (and safelife_tpu/core/advance.py):
@@ -16,19 +17,22 @@
 //   the raw board: counters in bits 0-24, flags in bits 25-31. A counter
 //   never exceeds 9 over a neighbourhood, so sums of such words are exact
 //   in bits 0-24 and ORs are exact in bits 25-31.
-// * Separable neighbourhood (`ca_step_block`). One thread owns a column
-//   (or a segment of one) and walks down its rows, keeping the horizontal
-//   3-tap sum and OR of three rows in registers; each row's horizontal
-//   taps are computed once, and the vertical step is one 3-input add and
-//   one 3-input OR. Row and column come from the loop, so no cell needs a
-//   division, and only the row counter wraps.
-// * Several boards per block: the wrapper picks the count from (H, W) so
-//   that columns fill warps; the boards of one block are contiguous in
-//   device memory and are staged with asynchronous 16-byte copies
-//   (`stage_in`) and stored with 16-byte stores (`store_out`).
-//
-// Boards too large for a block's shared memory take `ca_cells_global`
-// instead: one thread a cell, its neighbourhood read from device memory.
+// * Separable neighbourhood (`ca_step_block`, `walk_tile`). One thread
+//   owns a column (or a segment of one) and walks down its rows, keeping
+//   the horizontal 3-tap sum and OR of three rows in registers; each row's
+//   horizontal taps are computed once (`row_taps`), and the vertical step
+//   is one 3-input add and one 3-input OR. Row and column come from the
+//   loop, so no cell needs a division.
+// * Boards of up to MAX_CELLS (ops/physics.py): several boards per block;
+//   the wrapper picks the count from (H, W) so that columns fill warps;
+//   the boards of one block are contiguous in device memory and are staged
+//   with asynchronous 16-byte copies (`stage_in`) and stored with 16-byte
+//   stores (`store_out`). Only the row counter wraps.
+// * Larger boards: a block takes one tile of one board, R rows x C
+//   columns staged with a one-cell halo ring (`Tile`, `stage_tile_async`),
+//   so the walk reads the halo instead of wrapping; the halo's packs are
+//   the tiling's only extra operations, about (2R + 2C + 4) / (R C) a
+//   cell (ops/physics.py::tile_shape picks R, C and the threads).
 #pragma once
 
 #include <stdint.h>
@@ -151,23 +155,34 @@ __device__ __forceinline__ int ca_rule(int v, uint32_t sum, uint32_t orw,
   return v;
 }
 
+// One asynchronous copy (`cp.async`) of 16 bytes (both addresses 16-byte
+// aligned) or of 4 bytes from device to shared memory: no register
+// staging, all of a thread's copies in flight at once.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 // Starts copying n ints from device to shared memory with all of the
-// block's threads: asynchronous 16-byte copies (`cp.async`, no register
-// staging, all in flight at once) where both addresses are 16-byte aligned
-// (the wrapper's block sizes make them so for the usual boards), one int at
-// a time for the tail or otherwise. The copies are complete after
-// `stage_wait` and a barrier.
+// block's threads: asynchronous 16-byte copies where both addresses are
+// 16-byte aligned (the wrapper's block sizes make them so for the usual
+// boards), one int at a time for the tail or otherwise. The copies are
+// complete after `stage_wait` and a barrier.
 __device__ __forceinline__ void stage_async(int* __restrict__ dst,
                                             const int* __restrict__ src,
                                             int n) {
   int done = 0;
   if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0) {
     const int n4 = n >> 2;
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 4 * i);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                   "l"(src + 4 * i));
-    }
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
     asm volatile("cp.async.commit_group;\n" ::);
     done = n4 << 2;
   }
@@ -267,37 +282,172 @@ __device__ __forceinline__ void ca_step_block(
   __syncthreads();
 }
 
-// The global-memory form of the CA step, for boards too large to stage
-// (above MAX_CELLS of ops/physics.py): cells first, first + stride, ... of
-// the h x w board `src` of batch lane `lane`, each read with its 3x3
-// neighbourhood straight from device memory, every neighbour packed as it
-// is read, into `dst`. Coins are drawn at counter (cell + cell_offset,
-// lane + lane_offset). `src` is not __restrict__: K1 writes it earlier in
-// the same kernel.
-__device__ __forceinline__ void ca_cells_global(
-    const int* src, int* __restrict__ dst, int h, int w, int first,
-    int stride, int lane, bool stochastic, uint32_t k0, uint32_t k1,
-    float prob, int lane_offset, int cell_offset) {
-  const int hw = h * w;
-  for (int i = first; i < hw; i += stride) {
-    const int y = i / w;
-    const int x = i - y * w;
-    const int xm = x == 0 ? w - 1 : x - 1;
-    const int xp = x == w - 1 ? 0 : x + 1;
-    const int rows[3] = {(y == 0 ? h - 1 : y - 1) * w, y * w,
-                         (y + 1 == h ? 0 : y + 1) * w};
-    uint32_t sum = 0, orw = 0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const uint32_t a = pack_cell(src[rows[k] + xm]);
-      const uint32_t c = pack_cell(src[rows[k] + x]);
-      const uint32_t d = pack_cell(src[rows[k] + xp]);
-      sum += a + c + d;
-      orw |= a | c | d;
+// ---------------------------------------------------------------------------
+// Tiles of boards above MAX_CELLS.
+//
+// Tile t of an h x w board cut into tiles of R x C cells (row-major over
+// the tiles, the last row and column of tiles possibly smaller) holds
+// board rows [y0, y0 + r) and columns [x0, x0 + c). It is staged as r + 2
+// rows of `tile_stride(C)` words: staged row k is board row y0 - 1 + k and
+// its word 3 + j board column x0 - 1 + j, both wrapped round the torus, so
+// the tile's own cells start at word 4 of rows 1 .. r, 16-byte aligned,
+// and the halo ring lies around them. Words 0-2 and those past c + 4 are
+// never written.
+
+struct Tile {
+  int y0, x0, r, c;
+  int stride;
+};
+
+__host__ __device__ inline int tile_stride(int cols) {
+  return (cols + 8) & ~3;  // cols + 5 words, rounded up to 16 bytes
+}
+
+// Shared bytes of one staged tile and its packed words.
+__host__ __device__ inline int tile_smem_bytes(int rows, int cols) {
+  return 2 * (rows + 2) * tile_stride(cols) * (int)sizeof(int);
+}
+
+__device__ __forceinline__ Tile tile_at(int t, int h, int w, int rows,
+                                        int cols) {
+  const int nx = (w + cols - 1) / cols;
+  const int ty = t / nx;
+  Tile tl;
+  tl.y0 = ty * rows;
+  tl.x0 = (t - ty * nx) * cols;
+  tl.r = min(rows, h - tl.y0);
+  tl.c = min(cols, w - tl.x0);
+  tl.stride = tile_stride(cols);
+  return tl;
+}
+
+// Calls f(i, j) for every (i, j) of an n x m grid, the block's threads
+// taking them in row-major order, with no division past the first.
+template <class F>
+__device__ __forceinline__ void block_grid(int n, int m, F f) {
+  if (m <= 0) return;
+  const int di = blockDim.x / m, dj = blockDim.x - di * m;
+  int i = threadIdx.x / m, j = threadIdx.x - i * m;
+  while (i < n) {
+    f(i, j);
+    i += di;
+    j += dj;
+    if (j >= m) {
+      j -= m;
+      ++i;
     }
-    dst[i] = ca_rule(src[i], sum, orw, i + cell_offset, lane + lane_offset,
-                     stochastic, k0, k1, prob);
   }
+}
+
+// Starts staging tile `t` of board `g` into `s` with all of the block's
+// threads: the tile's columns of its rows and of the halo rows above and
+// below by asynchronous 16-byte copies where `vec` (the caller's check
+// that the board, W and C are 16-byte aligned), else 4-byte ones; the two
+// halo columns 4 bytes a copy. Complete after `stage_wait` and a barrier.
+__device__ __forceinline__ void stage_tile_async(int* __restrict__ s,
+                                                 const int* g, const Tile& t,
+                                                 int h, int w, bool vec) {
+  const int rows = t.r + 2;
+  if (vec) {
+    block_grid(rows, t.c >> 2, [&](int k, int j) {
+      const int gy = wrap1(t.y0 - 1 + k, h);
+      cp_async16(s + k * t.stride + 4 + 4 * j, g + gy * w + t.x0 + 4 * j);
+    });
+  } else {
+    block_grid(rows, t.c, [&](int k, int j) {
+      const int gy = wrap1(t.y0 - 1 + k, h);
+      cp_async4(s + k * t.stride + 4 + j, g + gy * w + t.x0 + j);
+    });
+  }
+  const int xl = wrap1(t.x0 - 1, w), xr = wrap1(t.x0 + t.c, w);
+  block_grid(rows, 2, [&](int k, int right) {
+    const int gy = wrap1(t.y0 - 1 + k, h);
+    cp_async4(s + k * t.stride + (right ? 4 + t.c : 3),
+              g + gy * w + (right ? xr : xl));
+  });
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Packs the staged words of `t` once each, q = pack_cell(s), 16 bytes at
+// a time over whole staged rows (the words around the staged ones are
+// packed too and never read), with `n_threads` threads, this one `tid`.
+__device__ __forceinline__ void pack_tile(const int* __restrict__ s,
+                                          uint32_t* __restrict__ q,
+                                          const Tile& t, int tid,
+                                          int n_threads) {
+  const int n4 = ((t.r + 2) * t.stride) >> 2;
+  const int4* s4 = reinterpret_cast<const int4*>(s);
+  uint4* q4 = reinterpret_cast<uint4*>(q);
+  for (int i = tid; i < n4; i += n_threads) {
+    const int4 v = s4[i];
+    q4[i] = make_uint4(pack_cell(v.x), pack_cell(v.y), pack_cell(v.z),
+                       pack_cell(v.w));
+  }
+}
+
+// One CA step of tile `t`'s own cells, in place in `s`, from the packed
+// words `q` (halo included). Threads are (segment, column) items of
+// `pad_cols` columns (C rounded up to whole warps) by segments of `rows`
+// rows; an item walks its column down its segment. Cell (y, x) of the
+// tile draws its coin at counter (its index in the whole board +
+// cell_offset, lane + lane_offset), mod 2^32.
+__device__ __forceinline__ void walk_tile(
+    int* __restrict__ s, const uint32_t* __restrict__ q, const Tile& t,
+    int w, int pad_cols, int rows, int lane, bool stochastic, uint32_t k0,
+    uint32_t k1, float prob, int lane_offset, int cell_offset) {
+  const int items = pad_cols * ((t.r + rows - 1) / rows);
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int seg = item / pad_cols;
+    const int x = item - seg * pad_cols;
+    if (x >= t.c) continue;
+    const int ya = seg * rows, yb = min(t.r, ya + rows);
+    // Staged row ya is the row above the segment's first; word 3 + x the
+    // column left of x.
+    const uint32_t* qc = q + ya * t.stride + 3 + x;
+    uint32_t s_up, o_up, s_mid, o_mid;
+    row_taps(qc, 0, 1, 2, &s_up, &o_up);
+    qc += t.stride;
+    row_taps(qc, 0, 1, 2, &s_mid, &o_mid);
+    int* sc = s + (ya + 1) * t.stride + 4 + x;
+    uint32_t cell = (uint32_t)((t.y0 + ya) * w + t.x0 + x) +
+                    (uint32_t)cell_offset;
+    for (int y = ya; y < yb; ++y) {
+      qc += t.stride;
+      uint32_t s_dn, o_dn;
+      row_taps(qc, 0, 1, 2, &s_dn, &o_dn);
+      *sc = ca_rule(*sc, s_up + s_mid + s_dn, o_up | o_mid | o_dn, (int)cell,
+                    lane + lane_offset, stochastic, k0, k1, prob);
+      s_up = s_mid;
+      o_up = o_mid;
+      s_mid = s_dn;
+      o_mid = o_dn;
+      sc += t.stride;
+      cell += (uint32_t)w;
+    }
+  }
+}
+
+// Stores tile `t`'s own cells from `s` to board `g`, 16 bytes a store
+// where `vec` (as for `stage_tile_async`).
+__device__ __forceinline__ void store_tile(int* g, const int* __restrict__ s,
+                                           const Tile& t, int w, bool vec) {
+  if (vec) {
+    block_grid(t.r, t.c >> 2, [&](int y, int j) {
+      *reinterpret_cast<int4*>(g + (t.y0 + y) * w + t.x0 + 4 * j) =
+          *reinterpret_cast<const int4*>(s + (y + 1) * t.stride + 4 + 4 * j);
+    });
+  } else {
+    block_grid(t.r, t.c, [&](int y, int x) {
+      g[(t.y0 + y) * w + t.x0 + x] = s[(y + 1) * t.stride + 4 + x];
+    });
+  }
+}
+
+// Whether tile staging and stores of boards `a` and `b` can move 16
+// bytes at a time: both 16-byte aligned, and W and C multiples of 4.
+__device__ __forceinline__ bool tile_vec(const void* a, const void* b, int w,
+                                         int cols) {
+  return ((((uintptr_t)a | (uintptr_t)b) & 15) | (w & 3) | (cols & 3)) == 0;
 }
 
 }  // namespace sl

@@ -16,11 +16,13 @@ the CPU; there is no other route. Boards of any shape are taken, those
 smaller than 4x4 included. Up to ``MAX_CELLS`` cells, both kernels stage
 blocks of several boards in shared memory and run the CA step of
 ``csrc/ca.cuh`` there; :func:`launch_shape` picks the block layout from the
-board shape and the batch. Larger boards take the global-memory form of
-the same sources (``physics_global_kernel``, ``advance_global_kernel``),
-which reads each cell's neighbourhood from device memory. The JAX package
-routes by board shape too (``safelife_tpu/ops/physics.py:78``).
-:mod:`._build` counts the launches of each form.
+board shape and the batch. Larger boards take the tiled form of the same
+sources (``physics_tiled_kernel``, ``advance_tiled_kernel``; launch-count
+keys ``*_global``): a block stages one tile of one board with a one-cell
+halo ring and runs the same CA step on it; :func:`tile_shape` picks the
+tiles. The JAX package routes by board shape too
+(``safelife_tpu/ops/physics.py:78``). :mod:`._build` counts the launches
+of each form.
 
 Randomness: the stochastic spawn coin of cell ``i`` on board ``lane`` is
 the first word of Philox4x32-10 at counter ``(i + cell_offset,
@@ -52,17 +54,24 @@ _U32 = 0xFFFFFFFF
 #: Largest board the staged kernels take. A block stages the raw board and
 #: one packed word a cell in shared memory (8 bytes a cell), so a board of
 #: MAX_CELLS needs 96 KB; above 48 KB a kernel opts in to more. Larger
-#: boards take the global-memory form.
+#: boards take the tiled form.
 MAX_CELLS = 12288
 SMEM_BYTES_PER_CELL = 8
 #: Shared memory a block of the H100 may use after opting in (232,448 B).
 MAX_SMEM_BYTES = 227 * 1024
 _DEFAULT_SMEM_BYTES = 48 * 1024
 _MAX_THREADS = 1024
-#: Threads a block of the global-memory forms: K1's block takes one board,
-#: K2's a stretch of one board's cells.
-GLOBAL_THREADS_K1 = 1024
-GLOBAL_THREADS_K2 = 256
+#: Widest tile of the tiled forms: wider boards are cut into columns of
+#: tiles too.
+TILE_MAX_COLS = 128
+#: Fewest blocks a tiled launch cuts its boards into while it can: two an
+#: SM of the H100.
+_TILE_MIN_BLOCKS = 2 * 132
+#: Threads the tiled walk aims to spread a batch over: fewer than the
+#: staged forms' target, since a tile's walkers also read its halo rows
+#: (192x192 boards at B = 64 walk 16 rows a thread, the fastest of
+#: ``chip_sweep.py large``'s layouts; PERF.md).
+_TILE_TARGET_THREADS = 147456
 _MAX_BOARDS_PER_BLOCK = 32
 #: Threads the CA walk aims to spread a batch over: about three quarters of
 #: the 132 x 2048 an H100 holds at once. Fewer leave the walk, a chain of
@@ -113,6 +122,52 @@ def launch_shape(h, w, batch):
             best, best_used = n, used
     return (best, rows, block_threads(h, w, best, rows),
             best * h * w * SMEM_BYTES_PER_CELL)
+
+
+def tile_smem_bytes(rows, cols):
+    """Shared bytes of a staged tile of ``rows`` x ``cols`` cells and its
+    packed words (``csrc/ca.cuh::tile_smem_bytes``): rows + 2 rows of
+    cols + 5 words each (the halo ring and a 16-byte aligned start),
+    rounded up to 16 bytes. K1 adds ``csrc/physics.cu``'s
+    ``TILE_WORDS_PER_AGENT`` (29) words an agent."""
+    return 2 * (rows + 2) * ((cols + 8) & ~3) * 4
+
+
+@functools.lru_cache(maxsize=64)
+def tile_shape(h, w, batch):
+    """(tile_rows, tile_cols, rows_per_thread, threads, shared bytes) of a
+    tiled K1/K2 launch (boards above ``MAX_CELLS`` cells).
+
+    Columns: the fewest tiles of at most ``TILE_MAX_COLS`` columns across
+    the board, their width rounded up to 4 columns (16-byte copies) but
+    never past W. Rows a thread walks: at least 4, and as many as cut the
+    batch's columns into about ``_TILE_TARGET_THREADS`` walks (as
+    :func:`launch_shape` does for its target). The tile's height is a
+    multiple k of those rows, k the largest that keeps the launch at
+    ``_TILE_MIN_BLOCKS`` blocks or more (tiles x batch), the block within
+    1024 threads (one a column, rounded up to whole warps, by k) and the
+    staged tile within the default 48 KB of shared memory
+    (:func:`tile_smem_bytes`); k = 1 where none does. Tiles of the last
+    row or column may be smaller.
+    192x192 boards at B = 64 give tiles of 48 x 96 cells, 16 rows a thread,
+    288 threads and 41,600 bytes.
+    """
+    nx = -(-w // TILE_MAX_COLS)
+    cols = min(w, -(-w // (4 * nx)) * 4)
+    segments = max(1, round(_TILE_TARGET_THREADS / (max(batch, 1) * w)))
+    rows = min(h, max(_MIN_ROWS, -(-h // segments)))
+    pad = -(-cols // 32) * 32
+    tile = rows
+    for k in range(2, _MAX_THREADS // pad + 1):
+        r = min(h, k * rows)
+        if (tile_smem_bytes(r, cols) > _DEFAULT_SMEM_BYTES
+                or -(-h // r) * nx * batch < _TILE_MIN_BLOCKS):
+            break
+        tile = r
+        if r == h:
+            break
+    return (tile, cols, rows, pad * -(-tile // rows),
+            tile_smem_bytes(tile, cols))
 
 
 def _mulhilo(m, x):
@@ -241,11 +296,10 @@ def fused_actions_advance(board, agent_locs, actions, spawn_prob, seed,
     outputs = (out_board.data_ptr(), out_locs.data_ptr(),
                out_cells.data_ptr())
     if h * w > MAX_CELLS:
-        # The board after the actions, which the CA step reads.
-        scratch = torch.empty_like(board)
+        tr, tc, rows, threads, _ = tile_shape(h, w, b)
         _build.launch("sl_fused_actions_advance_global", dev, *inputs,
-                      scratch.data_ptr(), *outputs, b, h, w, a,
-                      GLOBAL_THREADS_K1, int(bool(stochastic)),
+                      *outputs, b, h, w, a, tr, tc, rows, threads,
+                      int(bool(stochastic)),
                       _int32("lane_offset", lane_offset))
     else:
         bpb, rows, threads, _ = launch_shape(h, w, b)
@@ -294,8 +348,9 @@ def advance(board, spawn_prob, seed, *, h, w, stochastic, lane_offset=0,
     offsets = (_int32("lane_offset", lane_offset),
                _int32("cell_offset", cell_offset))
     if h * w > MAX_CELLS:
-        _build.launch("sl_advance_global", dev, *args, GLOBAL_THREADS_K2,
-                      int(bool(stochastic)), *offsets)
+        tr, tc, rows, threads, _ = tile_shape(h, w, b)
+        _build.launch("sl_advance_global", dev, *args, tr, tc, rows,
+                      threads, int(bool(stochastic)), *offsets)
     else:
         bpb, rows, threads, _ = launch_shape(h, w, b)
         _build.launch("sl_advance", dev, *args, bpb, rows, threads,

@@ -23,8 +23,10 @@ from safelife_tpu_torch.core import actions as AC  # noqa: E402
 from safelife_tpu_torch.ops import physics as P  # noqa: E402
 
 
-def soup(rng, b, h, w, n_agents, spawners=False):
-    """tests/test_pallas.py::_soup: random boards with agents."""
+def soup(rng, b, h, w, n_agents, spawners=False, anywhere=False):
+    """tests/test_pallas.py::_soup: random boards with agents (two cells
+    or more from the top and left edges, or, with ``anywhere``, on any
+    cell)."""
     board = np.zeros((b, h, w), np.int32)
     alive = rng.random((b, h, w)) < 0.2
     board |= alive * (C.ALIVE | C.DESTRUCTIBLE)
@@ -37,7 +39,13 @@ def soup(rng, b, h, w, n_agents, spawners=False):
     if spawners:
         board |= ((rng.random((b, h, w)) < 0.02)
                   * (C.SPAWNING | C.FROZEN)).astype(np.int32)
-    locs = rng.integers(2, min(h, w) - 2, (b, n_agents, 2)).astype(np.int32)
+    if anywhere:
+        locs = np.stack([rng.integers(0, h, (b, n_agents)),
+                         rng.integers(0, w, (b, n_agents))], -1)
+        locs = locs.astype(np.int32)
+    else:
+        locs = rng.integers(2, min(h, w) - 2,
+                            (b, n_agents, 2)).astype(np.int32)
     for i in range(b):
         for k in range(n_agents):
             board[i, locs[i, k, 0], locs[i, k, 1]] = C.PLAYER
@@ -232,9 +240,10 @@ def test_shapes_outside_the_kernels_raise():
                   stochastic=False)
 
 
-#: Boards above MAX_CELLS, which take the kernels' global-memory form on
-#: the card.
-LARGE_SHAPES = [(112, 112), (6, 2100)]
+#: Boards above MAX_CELLS, which take the kernels' tiled form on the card:
+#: square, cut into columns of tiles, fewer than 4 rows (an action's cells
+#: alias across the wrap), and an odd width that no tile divides.
+LARGE_SHAPES = [(112, 112), (6, 2100), (3, 4200), (131, 97)]
 
 
 @pytest.mark.parametrize("shape", LARGE_SHAPES)
@@ -246,7 +255,8 @@ def test_large_boards_fused_matches_jax(shape, stochastic):
     rng = np.random.default_rng(60 + shape[1] + stochastic)
     b, (h, w) = 2, shape
     assert h * w > P.MAX_CELLS
-    board, locs = soup(rng, b, h, w, 2, spawners=stochastic)
+    board, locs = soup(rng, b, h, w, 2, spawners=stochastic,
+                       anywhere=min(h, w) < 5)
     acts = rng.integers(0, 9, (b, 2)).astype(np.int32)
     sp = torch.full((b,), 0.3)
     seed = _seed(-987654321, 123456789)
@@ -276,7 +286,8 @@ def test_large_boards_advance_matches_jax(shape, stochastic):
     and with spawners at p = 0.3 fed the same Philox coins."""
     rng = np.random.default_rng(70 + shape[1] + stochastic)
     b, (h, w) = 2, shape
-    board, _ = soup(rng, b, h, w, 2, spawners=stochastic)
+    board, _ = soup(rng, b, h, w, 2, spawners=stochastic,
+                    anywhere=min(h, w) < 5)
     sp = torch.full((b,), 0.3)
     seed = _seed(31337, -4242)
     if stochastic:
@@ -312,6 +323,39 @@ def test_launch_shape(shape, batch, expected):
     block's boards fill whole warps where they can, within 1024 threads
     and, for more than one board, 48 KB."""
     assert P.launch_shape(*shape, batch) == expected
+
+
+@pytest.mark.parametrize("shape,batch,expected", [
+    ((192, 192), 1, (4, 96, 4, 96, 4992)),
+    ((192, 192), 64, (48, 96, 16, 288, 41600)),
+    ((98, 192), 1, (4, 96, 4, 96, 4992)),
+    ((6, 2100), 1, (4, 124, 4, 128, 6336)),
+    ((6, 2100), 7, (4, 124, 4, 128, 6336)),
+    ((3, 4200), 1, (3, 128, 3, 128, 5440)),
+    ((3, 4200), 7, (3, 128, 3, 128, 5440)),
+])
+def test_tile_shape(shape, batch, expected):
+    """Tile rows and columns, rows a thread, threads and shared bytes of
+    tiled K1/K2 launches: the tiles cover every cell of the board exactly
+    once (as ``csrc/ca.cuh::tile_at`` cuts them), every walker of a tile
+    has its thread within 1024, and the staged tile's shared bytes are
+    what ``tile_smem_bytes`` claims, within the default 48 KB."""
+    h, w = shape
+    assert P.tile_shape(h, w, batch) == expected
+    tr, tc, rows, threads, smem = expected
+    assert h * w > P.MAX_CELLS and 1 <= rows <= tr <= h and 1 <= tc <= w
+    assert tc % 4 == 0 or tc == w  # 16-byte copies where W allows
+    nx, ny = -(-w // tc), -(-h // tr)
+    hits = np.zeros((h, w), np.int32)
+    for t in range(nx * ny):
+        y0, x0 = (t // nx) * tr, (t % nx) * tc
+        hits[y0:y0 + min(tr, h - y0), x0:x0 + min(tc, w - x0)] += 1
+    assert (hits == 1).all()
+    assert threads % 32 == 0 and threads <= 1024
+    assert threads >= -(-tc // 32) * 32 * -(-tr // rows)
+    assert smem == P.tile_smem_bytes(tr, tc) <= 48 * 1024
+    # Two rows and five columns of halo and alignment around the tile.
+    assert smem == 2 * (tr + 2) * (-(-(tc + 5) // 4) * 4) * 4
 
 
 @pytest.mark.parametrize("stochastic", [False, True])
