@@ -10,7 +10,7 @@ non-zero:
 0. Environment: the card, its power limit, torch, CUDA and nvcc versions;
    builds the kernels from ``safelife_tpu_torch/ops/csrc`` (one library a
    source, each holding a staged form and one for shapes too large to
-   stage whole: K1 and K2 tiled, K3 from global memory).
+   stage whole: K1 and K2 tiled, K3 windowed).
 1. Each kernel form against its plain PyTorch version on the card, bit for
    bit, on seeded random soups and real level boards: K1
    ``fused_actions_advance`` and K2 ``advance`` on boards (1,4), (2,5),
@@ -29,8 +29,12 @@ non-zero:
    board's step, the toroidal wrap included); K3
    ``recenter_views`` for views (25,25), (15,15), (7,9) on 26x26 boards,
    views larger than the board ((25,25) on 3x3, (15,15) on 10x12, (7,6) on
-   6x6), and (25,25) on 192x192 boards (too large to stage: the
-   global-memory form), each x A in {1,3} x E in {0,1,2}, and (3,3) on 3x3.
+   6x6), and (25,25) on 192x192 boards (too large to stage: the windowed
+   form), each x A in {1,3} x E in {0,1,2}, and (3,3) on 3x3; the windowed
+   form also on 173x173 (just above the staging limit), 12x2600 (a view
+   taller than the board), 191x157 and the boards above MAX_CELLS named
+   above x B in {1, 7, 64} x A in {1,3} x E in {0,1,2}, view centres and
+   exits on the wrap edges and corners.
 2. The main path: the prune-dynamic v1.0 benchmark (100 levels) through
    ``run_episodes`` at 512 lanes x 1000 steps and ``benchmark`` over the
    100 levels, with the 25x25 / dense-512 policy on packed observations
@@ -47,7 +51,7 @@ non-zero:
 4. The large-board path: generated 192x192 levels (spawners, goals that
    evolve) through ``run_episodes`` at 64 lanes x 40 steps with the same
    policy, counts zeroed just before and read just after; the tiled forms
-   of K1 and K2 and the global-memory form of K3 must have run, and no
+   of K1 and K2 and the windowed form of K3 must have run, and no
    staged K1 or K2. Then 16 lanes x 10 steps of
    such levels without spawners (the card's and the CPU's generators draw
    different seeds) on the card against the port's CPU path.
@@ -215,7 +219,9 @@ non-zero:
 Between phases 9 and 10 it times each kernel form and its plain version
 at the shapes of the path that runs it (the main path's at B = 512 and
 4096, the large-board path's at B = 64), holding their outputs there
-against each other too, and prints, before the last line, the card's name and power limit as
+against each other too (a kernel's time is the profiler's device time, or
+a CUDA graph's on the device's clock, or "not timed": ``device_ms``), and
+prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line (each
 form's ``launches`` on its path and ``launches_bench`` in phase 12's
 chunk). The last line is ``{"ok": true, "device": {...}}``.
@@ -641,6 +647,7 @@ def check_obs(dev, errs):
             "bytes at A=1: %s) x A in {1,3} x E in {0,1,2}: %s exact"
             % (view, h, w, b, O.view_launch_shape(b, 1, h, w, *view),
                ", ".join(sorted(forms))))
+    check_window_obs(dev, errs, rng)
     # 3x3 boards with a 3x3 view.
     b, h, w = 4096, 3, 3
     words = rng.integers(0, 2 ** 16, (2, b, h, w)).astype(np.int32)
@@ -652,6 +659,59 @@ def check_obs(dev, errs):
     compare(errs, lambda: ops.recenter_views(*args, view_shape=(3, 3)),
             lambda: ops.recenter_views_plain(*args, view_shape=(3, 3)))
     log("K3 view (3,3) on 3x3: exact")
+
+
+#: Boards above the staging limit on which phase 1 holds K3's windowed
+#: form besides LARGE_LEVEL: just above it (29,929 cells), a 25x25 view
+#: taller than the board (it tiles the board), odd sides. LARGE_SHAPES,
+#: above MAX_CELLS, take the windowed form too.
+WINDOW_SHAPES = ((173, 173), (12, 2600), (191, 157))
+
+
+def edge_centres(rng, b, a, n):
+    """int32[b, a] view centres (or exit rows) on 0..n-1, most of them on
+    the wrap edges (0, 1, n-2, n-1), the rest anywhere."""
+    edges = np.array([0, 1, n - 2, n - 1]) % n
+    pick = rng.integers(0, n, (b, a))
+    on_edge = rng.random((b, a)) < 0.75
+    return np.where(on_edge, edges[rng.integers(0, 4, (b, a))],
+                    pick).astype(np.int32)
+
+
+def check_window_obs(dev, errs, rng):
+    """K3's windowed form against its plain version on WINDOW_SHAPES and
+    LARGE_SHAPES at B in {1, 7, 64}, A in {1, 3}, E in {0, 1, 2}, both
+    white-goal modes, with centres and exits on the wrap edges and
+    corners."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.ops import obs as O
+
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    for h, w in WINDOW_SHAPES + LARGE_SHAPES:
+        for b in (1, 7, 64):
+            forms = set()
+            for a in (1, 3):
+                if O.view_launch_shape(b, a, h, w, *VIEW)[0]:
+                    raise AssertionError("%dx%d lanes were staged" % (h, w))
+                for e in (0, 1, 2):
+                    words = rng.integers(0, 2 ** 16, (2, b, h, w)).astype(
+                        np.int32)
+                    args = (t(words[0]), t(words[1]),
+                            t(edge_centres(rng, b, a, h)),
+                            t(edge_centres(rng, b, a, w)),
+                            t(np.stack([edge_centres(rng, b, e, h),
+                                        edge_centres(rng, b, e, w)], -1)),
+                            t(rng.random((b, e)) < 0.7))
+                    for rw in (True, False):
+                        k = dict(view_shape=VIEW, remove_white_goals=rw)
+                        forms.update(compare(
+                            errs, lambda: ops.recenter_views(*args, **k),
+                            lambda: ops.recenter_views_plain(*args, **k)))
+            log("K3 view %s on %dx%d, B=%d (views a block, threads, shared "
+                "bytes at A=1, E=1: %s) x A in {1,3} x E in {0,1,2}, centres "
+                "on the wrap edges: %s exact"
+                % (VIEW, h, w, b, O.window_launch_shape(b, 1, 1, *VIEW),
+                   ", ".join(sorted(forms))))
 
 
 # ---------------------------------------------------------------------------
@@ -925,7 +985,7 @@ LARGE_PATH_FORMS = ("fused_actions_advance_global", "advance_global",
 
 def run_large_path(dev, levels, net, card, steps=40):
     """``run_episodes`` on LARGE_LEVEL levels, counts zeroed just before and
-    read just after: the tiled K1 and K2 and the global-memory K3 must have
+    read just after: the tiled K1 and K2 and the windowed K3 must have
     run, and no staged form of K1/K2."""
     from safelife_tpu_torch import ops
     from safelife_tpu_torch.env import env as E
@@ -971,31 +1031,76 @@ def run_large_path(dev, levels, net, card, steps=40):
 # Timing
 
 
+#: Profiled windows of n launches ``device_ms`` may take.
+PROFILE_WINDOWS = 4
+
+
 def device_ms(fn, kernel_name, n=50):
-    """Kernel time on the card per launch: the profiler's device time over
-    the launches it recorded when that is at least half of n (it may drop
-    some), in the first of two profiled windows where it is, else CUDA
-    events around n launches (launch overhead included)."""
+    """A kernel's time a launch on the card's clock, and how it was taken:
+    the profiler's device time over the launches of ``kernel_name`` it
+    recorded, over up to ``PROFILE_WINDOWS`` windows of n launches until it
+    has n (it may drop some); if it recorded fewer than n / 2 in all, CUDA
+    events around a CUDA graph of n launches replayed (the device's time
+    for the launches back to back, the gaps between them included and no
+    host launch overhead); if that cannot be captured, (None, "not
+    timed: ..."). Never a host-side time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    total, count = 0.0, 0
+    for window in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
         for evt in prof.key_averages():
             if kernel_name in evt.key:
                 total += getattr(evt, "device_time_total", 0.0)
                 count += evt.count
-        if 2 * count >= n and total > 0:
-            return total / count / 1e3, "profiler, %d of %d launches" % (
-                count, n)
-    return events_ms(fn, n), "events"
+        if count >= n:
+            break
+    if 2 * count >= n and total > 0:
+        return total / count / 1e3, "profiler, %d of %d launches" % (
+            count, window * n)
+    why = "the profiler kept %d of %d launches" % (count, window * n)
+    try:
+        ms = graph_ms(fn, n)
+    except RuntimeError as exc:
+        log("%s not timed: %s; CUDA graph capture failed: %s"
+            % (kernel_name, why, exc))
+        return None, "not timed: %s, no CUDA graph" % why
+    return ms, "CUDA graph of %d launches, events (%s)" % (n, why)
+
+
+def graph_ms(fn, n=50):
+    """Milliseconds a call of ``fn`` replayed n times in one CUDA graph,
+    between CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def fmt_ms(ms):
+    """A device time for a log line: "not timed" where there is none."""
+    return "not timed" if ms is None else "%.5f" % ms
 
 
 def events_ms(fn, n=50):
@@ -1038,6 +1143,19 @@ def covered_cells(h, w, cy, cx, exit_locs, exit_valid, view):
     return int(hit.sum())
 
 
+def view_work(h, w, cy, cx, exit_locs, exit_valid, view):
+    """(bytes, int32 operations) that K3 must move and do on these inputs:
+    the covered board and goal words read once, the centres, exits and
+    their flags read, each view word written once."""
+    b, a = cy.shape
+    e = exit_locs.shape[1]
+    vh, vw = view
+    nbytes = (2 * covered_cells(h, w, cy, cx, exit_locs, exit_valid, view) * 4
+              + 2 * b * a * 4 + b * e * 9 + b * a * vh * vw * 4)
+    return nbytes, b * a * (vh * vw * VIEW_OPS_PER_ELEMENT
+                            + e * EXIT_OPS_PER_VIEW)
+
+
 def time_kernels(dev, pool, b):
     """Time each kernel and its plain version at the shapes of ``pool``'s
     levels (one agent, their exits, 25x25 views) for b lanes, and hold
@@ -1052,7 +1170,6 @@ def time_kernels(dev, pool, b):
     h, w = pool.board_shape
     hw = h * w
     a = pool.num_agents
-    e = pool.exit_locs.shape[1]
     flat = state.board.reshape(b, hw).contiguous()
     goals = state.goals.reshape(b, hw).contiguous()
     locs = state.agent_locs.contiguous()
@@ -1065,7 +1182,6 @@ def time_kernels(dev, pool, b):
     ev = pool.exit_locs_valid.index_select(0, idx)
     cy = locs[..., 0].contiguous()
     cx = locs[..., 1].contiguous()
-    vh, vw = VIEW
 
     k1 = dict(h=h, w=w, stochastic=False)
     cases = (
@@ -1082,9 +1198,7 @@ def time_kernels(dev, pool, b):
                                     view_shape=VIEW),
          lambda: ops.recenter_views_plain(state.board, state.goals, cy, cx,
                                           el, ev, view_shape=VIEW),
-         2 * covered_cells(h, w, cy, cx, el, ev, VIEW) * 4 + 2 * b * a * 4
-         + b * e * 9 + b * a * vh * vw * 4,
-         b * a * (vh * vw * VIEW_OPS_PER_ELEMENT + e * EXIT_OPS_PER_VIEW)),
+         *view_work(h, w, cy, cx, el, ev, VIEW)),
     )
     out = {}
     for kern, plain, nbytes, nops in cases:
@@ -4596,7 +4710,7 @@ KERNELS = {
                        "safelife_tpu/ops/obs.py:146", "recenter_kernel"),
     "recenter_views_global": ("safelife_tpu_torch/ops/csrc/obs.cu",
                               "safelife_tpu/ops/obs.py:146",
-                              "recenter_global_kernel"),
+                              "recenter_window_kernel"),
 }
 
 
@@ -4708,11 +4822,11 @@ def main():
                                LARGE_LANES)
     for tt in (times, times_4096, times_large):
         for name, t in tt.items():
-            log("timing %-28s B=%-4d kernel %.5f ms (%s; %.5f ms a call "
+            log("timing %-28s B=%-4d kernel %s ms (%s; %.5f ms a call "
                 "with the wrapper), plain %.5f ms, bound %.5f ms (%s; bytes "
                 "%.5f, operations %.5f)  [%s]"
-                % (name, t["batch"], t["ms"], t["timed_by"], t["call_ms"],
-                   t["plain_ms"], t["bound_ms"], t["bound_by"],
+                % (name, t["batch"], fmt_ms(t["ms"]), t["timed_by"],
+                   t["call_ms"], t["plain_ms"], t["bound_ms"], t["bound_by"],
                    t["bytes_ms"], t["ops_ms"], card))
     log("rollout at 512 lanes x 200 steps: %.0f env-steps/s  [%s]"
         % (rollout_rate(dev, pool, net, LANES), card))

@@ -3,9 +3,12 @@ call, on one CUDA card.
 
     python3 chip_sweep.py [physics] [views] [host] [large] [learner]
                           [learner-4096] [procgen] [ranks] [bench]
+                          [parent=DIR]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-argument runs all nine parts). It imports torch and the port only, prints
+part named runs all nine; ``parent=DIR``, a checkout of another commit,
+e.g. the one before, ``git archive``'d under ``runs/``, adds its K3 to
+``large``). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
 prune-dynamic boards:
 
@@ -23,7 +26,14 @@ prune-dynamic boards:
   checked against the plain version bit for bit, beside the layout the
   wrapper picks; and the time of a device-to-device ``Tensor.copy_`` that
   moves as many bytes as K3 must (half read, half written), the
-  achievable-bandwidth yardstick (not a port of the function).
+  achievable-bandwidth yardstick (not a port of the function). Then K3's
+  windowed form (boards above ``MAX_CELLS``, lanes too large to stage) at
+  64 and 4096 lanes of
+  192x192 for every views-a-block count of ``ops.obs.VIEWS_PER_BLOCK`` and
+  128 to 1024 threads (``ops.obs.window_launch_shape`` swapped), each
+  checked bit for bit, beside the pick; and the windowed form against the
+  staged one (one lane a block) on the stageable boards of
+  ``chip_smoke.LARGE_SHAPES`` and 96x128 at B in {1, 7, 64, 512}.
 * At B = 512, the host time of one wrapper call and of the parts of the
   launch path, in microseconds a call over 2000 calls.
 * ``large``: the tiled K1 and K2 (boards above ``MAX_CELLS``) over tile
@@ -33,9 +43,13 @@ prune-dynamic boards:
   through the wrappers (``ops.physics.tile_shape`` swapped for the
   layout) and checked bit for bit, beside the layout ``tile_shape``
   picks; the pick on every ``chip_smoke.LARGE_SHAPES`` board and the
-  98x192 slab at B = 1 and 7; then the card's launch floor on the profiler's clock (the fill
-  kernel of a one-element ``torch.zeros``) beside the staged forms at
-  512 lanes and K3's global-memory form (``time_kernels``).
+  98x192 slab at B = 1 and 7; then the card's launch floor on the
+  profiler's clock (the fill kernel of a one-element ``torch.zeros``);
+  K3's windowed form at 64 and 4096 lanes of 192x192 beside its bound and,
+  with ``parent=DIR``, that checkout's K3 on the same inputs (each bit for
+  bit against the plain version); then every kernel
+  (``time_kernels``) on prune-dynamic at 16, 64, 512 and 2048 lanes and
+  on 192x192 at 64, each beside its bound and the launch floor.
 * ``learner``: the spread of ``chip_smoke.py``'s learner check (the PPO
   update on the card against the CPU path) over 48 batches of a 64-lane
   append-spawn training run, once in strict float32 and once with TF32
@@ -174,7 +188,7 @@ def sweep_views(dev, pool, card):
                 locs[..., 1].contiguous(),
                 pool.exit_locs.index_select(0, idx),
                 pool.exit_locs_valid.index_select(0, idx))
-        a, e = locs.shape[1], args[4].shape[1]
+        a = locs.shape[1]
         ref = O.recenter_views_plain(*args, view_shape=cs.VIEW)
         print("B=%d: view_launch_shape picks %d lanes a block, %d threads, "
               "%d B shared  [%s]" % ((b,) + O.view_launch_shape(
@@ -191,8 +205,7 @@ def sweep_views(dev, pool, card):
                       "K3 %.5f ms, exact" % (
                           b, lanes, per, O.view_block_threads(
                               lanes, a, h, w, vh, vw, per), t), flush=True)
-        nbytes = (2 * cs.covered_cells(h, w, *args[2:], cs.VIEW) * 4
-                  + 2 * b * a * 4 + b * e * 9 + b * a * vh * vw * 4)
+        nbytes = cs.view_work(h, w, *args[2:], cs.VIEW)[0]
         src = torch.zeros(nbytes // 8, dtype=torch.int32, device=dev)
         dst = torch.empty_like(src)
         t, how = cs.device_ms(lambda: dst.copy_(src), "Memcpy")
@@ -200,6 +213,100 @@ def sweep_views(dev, pool, card):
               "%d, K3's count): %.5f ms (%s), %.1f GB/s  [%s]"
               % (b, 4 * src.numel(), 8 * src.numel(), t, how,
                  8 * src.numel() / t / 1e6, card), flush=True)
+
+
+#: Threads a block of the windowed K3 the sweep tries.
+WINDOW_THREADS = (128, 256, 512, 1024)
+
+
+@contextlib.contextmanager
+def window_layout(views=None, threads=None):
+    """Launch K3's windowed form with ``views`` views a block and
+    ``threads`` threads (None: ``window_launch_shape``'s) while the context
+    is open, on every shape: lanes that could be staged too."""
+    staged, picked = O.view_launch_shape, O.window_launch_shape
+
+    def forced(batch, a, e, vh, vw):
+        v, t, _ = picked(batch, a, e, vh, vw)
+        v, t = views or v, threads or t
+        return v, t, O.window_smem_bytes(v, e, vh, vw)
+
+    O.view_launch_shape = lambda *args: (0, O.WINDOW_THREADS, 0)
+    O.window_launch_shape = forced
+    try:
+        yield
+    finally:
+        O.view_launch_shape, O.window_launch_shape = staged, picked
+
+
+def view_inputs(dev, pool, b):
+    """K3's arguments at ``b`` lanes of ``pool``'s reset (one agent, the
+    levels' exits)."""
+    cfg = E.EnvConfig(view_shape=cs.VIEW, output_channels=None)
+    idx = torch.arange(b, device=dev) % pool.num_levels
+    state = E.reset_batch(cfg, pool, idx)
+    locs = state.agent_locs
+    return (state.board, state.goals, locs[..., 0].contiguous(),
+            locs[..., 1].contiguous(), pool.exit_locs.index_select(0, idx),
+            pool.exit_locs_valid.index_select(0, idx))
+
+
+def sweep_window(dev, card):
+    """K3's windowed form over views a block x threads at 64 and 4096 lanes
+    of 192x192 (``cs.large_levels``), each layout checked bit for bit,
+    beside ``window_launch_shape``'s pick; then the windowed form against
+    the staged one (one lane a block) on the stageable boards of
+    ``cs.LARGE_SHAPES`` and 96x128, at B in {1, 7, 64, 512}."""
+    import numpy as np
+
+    vh, vw = cs.VIEW
+    pool = pack_levels(cs.large_levels(), device=dev)
+    for b in (cs.LARGE_LANES, 4096):
+        args = view_inputs(dev, pool, b)
+        a, e = args[2].shape[1], args[4].shape[1]
+        ref = O.recenter_views_plain(*args, view_shape=cs.VIEW)
+        bound_ms = cs.bound(*cs.view_work(*pool.board_shape, *args[2:],
+                                          cs.VIEW))[0]
+        print("192x192 B=%d: window_launch_shape picks %s; bound %.5f ms  "
+              "[%s]" % (b, O.window_launch_shape(b, a, e, vh, vw), bound_ms,
+                        card), flush=True)
+        for views in O.VIEWS_PER_BLOCK:
+            for threads in WINDOW_THREADS:
+                with window_layout(views, threads):
+                    ms, how = cs.device_ms(
+                        lambda: O.recenter_views(*args, view_shape=cs.VIEW),
+                        "recenter_window_kernel")
+                    got = O.recenter_views(*args, view_shape=cs.VIEW)
+                cs.max_err([(got, ref)])
+                print("192x192 B=%d views/block=%d threads=%d: K3 %s ms "
+                      "(%s), exact" % (b, views, threads, cs.fmt_ms(ms), how),
+                      flush=True)
+    rng = np.random.default_rng(9)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    for (h, w), b in [(shape, b) for shape in cs.LARGE_SHAPES + ((96, 128),)
+                      for b in (1, 7, 64, cs.LANES)]:
+        words = rng.integers(0, 2 ** 16, (2, b, h, w)).astype(np.int32)
+        args = (t(words[0]), t(words[1]), t(cs.edge_centres(rng, b, 1, h)),
+                t(cs.edge_centres(rng, b, 1, w)),
+                t(np.stack([rng.integers(0, h, (b, 1)),
+                            rng.integers(0, w, (b, 1))], -1).astype(np.int32)),
+                t(np.ones((b, 1), bool)))
+        ref = O.recenter_views_plain(*args, view_shape=cs.VIEW)
+        with view_layout(1, O.ELEMENTS_PER_THREAD):
+            got = O.recenter_views(*args, view_shape=cs.VIEW)
+            staged = cs.device_ms(
+                lambda: O.recenter_views(*args, view_shape=cs.VIEW),
+                "recenter_kernel")[0]
+        with window_layout():
+            windowed = cs.device_ms(
+                lambda: O.recenter_views(*args, view_shape=cs.VIEW),
+                "recenter_window_kernel")[0]
+            cs.max_err([(got, ref), (O.recenter_views(
+                *args, view_shape=cs.VIEW), ref)])
+        print("%dx%d B=%d: staged, one lane a block, %s ms; windowed %s "
+              "ms; view_launch_shape picks %s; exact  [%s]"
+              % (h, w, b, cs.fmt_ms(staged), cs.fmt_ms(windowed),
+                 O.view_launch_shape(b, 1, h, w, vh, vw), card), flush=True)
 
 
 def host_cost(dev, pool, n=2000):
@@ -333,14 +440,15 @@ def tile_layout(cols, rows, walkers):
         P.tile_shape = picked
 
 
-def large_tiles(dev, card):
+def large_tiles(dev, card, parent=None):
     """The tiled K1 and K2 over tile layouts (``TILE_*``) on ``TILE_CASES``
     soups (one agent a board), each layout through the wrappers and
     checked against the plain versions bit for bit, the profiler's device
     time a launch beside ``ops.physics.tile_shape``'s pick; then the
     card's launch floor on the same clock (a one-element ``torch.zeros``,
-    one fill kernel) beside the staged forms at 512 lanes and K3's
-    global-memory form (``cs.time_kernels``)."""
+    one fill kernel), K3 at 192x192 (``windowed_views``, with another
+    commit's K3 where ``parent`` names its checkout) and every kernel at
+    ``TRAINING_WIDTHS`` (``cs.time_kernels``)."""
     import numpy as np
 
     rng = np.random.default_rng(4)
@@ -414,17 +522,82 @@ def large_tiles(dev, card):
               flush=True)
     floor, how = cs.device_ms(lambda: torch.zeros(1, device=dev),
                               "FillFunctor")
-    print("launch floor: one-element torch.zeros, %.5f ms a fill kernel "
-          "(%s)  [%s]" % (floor, how, card), flush=True)
-    pools = ((pack_levels(load_levels("benchmarks/v1.0/prune-dynamic.npz"),
-                          device=dev), cs.LANES),
-             (pack_levels(cs.large_levels(), device=dev), cs.LARGE_LANES))
-    for pool, b in pools:
+    print("launch floor: one-element torch.zeros, %s ms a fill kernel "
+          "(%s)  [%s]" % (cs.fmt_ms(floor), how, card), flush=True)
+    windowed_views(dev, card, floor, parent)
+    prune = pack_levels(load_levels("benchmarks/v1.0/prune-dynamic.npz"),
+                        device=dev)
+    for pool, b in [(prune, b) for b in TRAINING_WIDTHS] + [
+            (pack_levels(cs.large_levels(), device=dev), cs.LARGE_LANES)]:
         for name, t in cs.time_kernels(dev, pool, b).items():
-            print("%-28s B=%-4d %.5f ms (%s), bound %.5f ms (%s), %.2f of "
-                  "the launch floor  [%s]"
-                  % (name, b, t["ms"], t["timed_by"], t["bound_ms"],
-                     t["bound_by"], t["ms"] / floor, card), flush=True)
+            print("%-28s B=%-4d %s ms (%s), bound %.5f ms (%s), %s of the "
+                  "launch floor  [%s]"
+                  % (name, b, cs.fmt_ms(t["ms"]), t["timed_by"],
+                     t["bound_ms"], t["bound_by"], ratio(t["ms"], floor),
+                     card), flush=True)
+
+
+#: Lanes of prune-dynamic at which ``large`` times every kernel: the
+#: parity trainer's 16, the CLI's default 64, the main path's 512 and a
+#: rank's half of 4096.
+TRAINING_WIDTHS = (16, 64, cs.LANES, 2048)
+
+
+def ratio(ms, floor):
+    return "not timed" if ms is None or floor is None else "%.2f" % (
+        ms / floor)
+
+
+def parent_views(parent):
+    """The K3 wrapper of the port in the checkout ``parent`` (another
+    commit, e.g. the one before this), imported as a package of its own;
+    it builds its kernels in its own tree. None without a checkout."""
+    import importlib
+    import importlib.util
+    import os
+
+    if parent is None:
+        return None
+    root = os.path.join(parent, "safelife_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(root, "__init__.py"),
+        submodule_search_locations=[root])
+    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["parent_port"])
+    return importlib.import_module("parent_port.ops.obs").recenter_views
+
+
+def windowed_views(dev, card, floor, parent=None):
+    """K3's windowed form at 64 and 4096 lanes of 192x192
+    (``cs.large_levels``: one agent, one exit, 25x25 views) beside its
+    bound and, with ``parent`` (a checkout of another commit), that
+    commit's K3 on the same inputs (its kernels named ``recenter*`` on the
+    profiler's clock), each held against the plain version bit for
+    bit."""
+    old = parent_views(parent)
+    pool = pack_levels(cs.large_levels(), device=dev)
+    h, w = pool.board_shape
+    for b in (cs.LARGE_LANES, 4096):
+        args = view_inputs(dev, pool, b)
+        ref = O.recenter_views_plain(*args, view_shape=cs.VIEW)
+        bound_ms, by, _, ops_ms = cs.bound(*cs.view_work(h, w, *args[2:],
+                                                         cs.VIEW))
+        forms = {"windowed (recenter_window_kernel)": (
+            lambda: O.recenter_views(*args, view_shape=cs.VIEW),
+            "recenter_window_kernel")}
+        if old is not None:
+            forms["of %s" % parent] = (
+                lambda: old(*args, view_shape=cs.VIEW), "recenter")
+        for name, (fn, kernel) in forms.items():
+            cs.max_err([(fn(), ref)])
+            ms, how = cs.device_ms(fn, kernel)
+            print("K3 %s 192x192 B=%d: %s ms (%s), bound %.5f ms (%s; "
+                  "operations %.5f), %s of bound, %s of the launch floor, "
+                  "exact  [%s]"
+                  % (name, b, cs.fmt_ms(ms), how, bound_ms, by, ops_ms,
+                     "not timed" if ms is None else "%.1f%%" % (
+                         100 * bound_ms / ms), ratio(ms, floor), card),
+                  flush=True)
 
 
 def plant_fault(fault):
@@ -610,9 +783,12 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
         return 1
-    parts = sys.argv[1:] or ["physics", "views", "host", "large",
-                             "learner", "learner-4096", "procgen", "ranks",
-                             "bench"]
+    args = sys.argv[1:]
+    parent = next((x.split("=", 1)[1] for x in args
+                   if x.startswith("parent=")), None)
+    parts = [x for x in args if not x.startswith("parent=")] or [
+        "physics", "views", "host", "large", "learner", "learner-4096",
+        "procgen", "ranks", "bench"]
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -626,6 +802,7 @@ def main():
         sweep(dev, pool, card)
     if "views" in parts:
         sweep_views(dev, pool, card)
+        sweep_window(dev, card)
     if "host" in parts:
         host = host_cost(dev, pool)
         print("host time a call at B=%d (us): %s  [%s]"
@@ -633,7 +810,7 @@ def main():
                                        for k, v in host.items()}), card),
               flush=True)
     if "large" in parts:
-        large_tiles(dev, card)
+        large_tiles(dev, card, parent)
     if "learner" in parts:
         learner_spread(dev, card, 64, 48, update=True)
     if "learner-4096" in parts:

@@ -9,9 +9,10 @@ These replace the three Pallas kernels of ``safelife_tpu/ops/``:
 A wrapper launches its kernel for CUDA tensors (building ``csrc/`` at first
 use, see :mod:`._build`) and runs its ``*_plain`` version for CPU tensors.
 Each kernel has two forms in its source, chosen by shape: the staged one,
-which works out of shared memory on whole boards, and one for boards (and,
-for K3, views) too large to stage whole (``*_global``: K1 and K2 stage
-tiles of a board, K3 gathers from global memory).
+which works out of shared memory on whole boards, and one for boards
+above 12,288 cells and lanes too large to stage whole (``*_global``: K1
+and K2 stage tiles of a board, K3 gathers its views' windows from device
+memory).
 """
 
 from . import _build

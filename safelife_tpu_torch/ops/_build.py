@@ -30,8 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: source file -> {C entry point: its argument types}. Each entry point
 #: launches one kernel form (the staged one, or the form for shapes too
-#: large to stage whole: K1/K2 tiled, K3 from global memory; its entry
-#: point ends in ``_global``); each source also has
+#: large to stage whole: K1/K2 tiled, K3 windowed; its entry point ends in
+#: ``_global``); each source also has
 #: ``<first entry>_error``.
 KERNELS = {
     "advance.cu": {
@@ -44,7 +44,7 @@ KERNELS = {
     },
     "obs.cu": {
         "sl_recenter_views": [_P] * 7 + [_I] * 10 + [_P],
-        "sl_recenter_views_global": [_P] * 7 + [_I] * 9 + [_P],
+        "sl_recenter_views_global": [_P] * 7 + [_I] * 10 + [_P],
     },
 }
 _HEADERS = ("ca.cuh",)

@@ -34,9 +34,29 @@
 // * Exits once a view, not once an element: after a barrier, one thread a
 //   view overwrites its exits' elements in order.
 //
-// Lanes too large to stage (ops/obs.py decides) take
-// `recenter_global_kernel`: one thread an element, a wrapped gather from
-// device memory, exits tested at each element.
+// Boards above MAX_CELLS (12,288 cells) and lanes too large to stage (one
+// lane's boards and tables above the 227 KB a block may have;
+// ops/obs.py::view_launch_shape decides) take the windowed form,
+// `recenter_window_kernel`, which reads from device memory
+// only the cells that the views and the exits cover, so the board's size
+// does not matter. At 4096 lanes of 192x192 boards it is bound by bytes:
+// 10.2 MB of views written and twice that of covered board and goal words
+// read, about 9.2 us at 3.35 TB/s, against 1.5 us of integer operations.
+// What it does about the latency of dependent loads and about divisions:
+//
+// * A block takes `views_per_block` consecutive views ((lane, agent)
+//   pairs; ops/obs.py::window_launch_shape picks the count and threads).
+// * Prologue, one round trip: the views' centres and their exits are
+//   loaded at once; the row-offset and column tables and each exit's slot
+//   in its view and cell are built from them in shared memory.
+// * Body, one round trip, no division: the element's (view, row, column)
+//   is carried by compare and subtract; WINDOW_UNROLL elements a thread
+//   have their board and goal loads in flight together (with the words of
+//   the thread's first exit), then are stored to consecutive addresses by
+//   consecutive threads.
+// * Exits once a view, not once an element: after a barrier, each valid
+//   exit of each view writes its word to its slot unless a later exit of
+//   the view has the same slot, so later exits win.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,13 +72,45 @@ __device__ __forceinline__ int packed_word(int b, int g, bool remove_white) {
   return b | (gcol << 16);
 }
 
+// x mod n (a floor modulo), by a compare and an add or subtract where x
+// lies in [-n, 2n), as a view's first row and column and its rows and
+// columns on a board at least as large as the view do, and by a division
+// only otherwise (one by a runtime divisor takes about 95 cycles).
+__device__ __forceinline__ int wrap_mod(int x, int n) {
+  const int y = wrap1(x, n);
+  return (unsigned)y < (unsigned)n ? y : floor_mod(x, n);
+}
+
+// Division by a divisor fixed for a launch: a multiply-high, an add and a
+// shift, with the magic number computed on the host (Granlund and
+// Montgomery's method, as PyTorch's IntDivider uses it). Exact for
+// 0 <= n < 2^31 and 1 <= d < 2^31.
+struct FastDiv {
+  unsigned magic;
+  int shift;
+
+  __host__ explicit FastDiv(int d) : shift(0) {
+    while ((1u << shift) < (unsigned)d) ++shift;
+    magic = (unsigned)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)((__umulhi((unsigned)n, magic) + (unsigned)n) >> shift);
+  }
+};
+
 // Element (row * vw + col) of a view centred at (ccy, ccx) that the exit at
 // (ey, ex) projects to: its wrapped offset from the centre, clipped to the
-// view's perimeter (safelife_tpu/env/env.py:192-206).
+// view's perimeter (safelife_tpu/env/env.py:192-206). The windowed form
+// wraps by wrap_mod, which takes its exits' chain 0.15-0.2 us shorter at
+// small batches; the staged form keeps floor_mod, with which it compiles
+// to 32 registers, two blocks of 1024 threads an SM (38 and one block with
+// wrap_mod: 20% slower at 4096 lanes). Both give the same slot.
+template <bool kWrap>
 __device__ __forceinline__ int exit_slot(int ey, int ex, int ccy, int ccx,
                                          int h, int w, int vh, int vw) {
-  const int jy = floor_mod(ey - ccy + h / 2, h) - h / 2 + vh / 2;
-  const int jx = floor_mod(ex - ccx + w / 2, w) - w / 2 + vw / 2;
+  const int oy = ey - ccy + h / 2, ox = ex - ccx + w / 2;
+  const int jy = (kWrap ? wrap_mod(oy, h) : floor_mod(oy, h)) - h / 2 + vh / 2;
+  const int jx = (kWrap ? wrap_mod(ox, w) : floor_mod(ox, w)) - w / 2 + vw / 2;
   return min(max(jy, 0), vh - 1) * vw + min(max(jx, 0), vw - 1);
 }
 
@@ -160,50 +212,186 @@ __global__ void __launch_bounds__(1024)
       if (!ev[e]) continue;
       const int ey = el[2 * e], ex = el[2 * e + 1];
       const int i = lane * hw + ey * w + ex;
-      dst[v * vhw + exit_slot(ey, ex, ccy, ccx, h, w, vh, vw)] =
+      dst[v * vhw + exit_slot<false>(ey, ex, ccy, ccx, h, w, vh, vw)] =
           packed_word(sb[i], sg[i], rw);
     }
   }
 }
 
-// The global-memory form: one thread an output element (the wrapper checks
-// that their count fits 32 bits), a wrapped gather from device memory, then
-// each valid exit in order tested against the element.
-__global__ void __launch_bounds__(256)
-    recenter_global_kernel(const int* __restrict__ board,
+// Elements a thread of the windowed body takes at a time, their board and
+// goal loads in flight together.
+constexpr int WINDOW_UNROLL = 4;
+
+// Exit k = v * n_exits + e of a windowed block whose first view is v0:
+// exit e of view v's lane (a0 + v agents after the block's first lane,
+// a0 = v0 mod n_agents), its slot in view v (-1 if the exit is not valid)
+// and the index of its cell from the block's first lane's board. Every
+// load goes out at once.
+struct ExitHit {
+  int slot, cell;
+};
+
+__device__ __forceinline__ ExitHit exit_hit(
+    int k, const int* __restrict__ cy, const int* __restrict__ cx,
+    const int* __restrict__ exit_locs, const uint8_t* __restrict__ exit_valid,
+    int v0, int lane0, int a0, FastDiv per_lane, FastDiv per_view, int h,
+    int w, int vh, int vw, int n_exits) {
+  const int v = per_view(k);
+  const int lane = per_lane(a0 + v);
+  const size_t p = (size_t)(lane0 + lane) * n_exits + (k - v * n_exits);
+  const int ey = exit_locs[2 * p], ex = exit_locs[2 * p + 1];
+  const bool valid = exit_valid[p];
+  const int slot =
+      exit_slot<true>(ey, ex, cy[v0 + v], cx[v0 + v], h, w, vh, vw);
+  return {valid ? slot : -1, lane * h * w + ey * w + ex};
+}
+
+// The windowed form: a block's views gathered from device memory through
+// per-view row and column tables. Shared memory (ops/obs.py::
+// window_smem_bytes): the row offsets and the columns of each view, and
+// the slot and cell of each of its exits. At small batches its time is
+// its chain of latencies (chip_sweep.py views, PERF.md), so the
+// prologue's loads go out in one round trip (the rows, the columns and the
+// exits each start on a warp of their own: a warp runs the sides of a
+// branch one after the other), and divisions go through FastDiv.
+__global__ void __launch_bounds__(1024)
+    recenter_window_kernel(const int* __restrict__ board,
                            const int* __restrict__ goals,
                            const int* __restrict__ cy,
                            const int* __restrict__ cx,
                            const int* __restrict__ exit_locs,
                            const uint8_t* __restrict__ exit_valid,
-                           int* __restrict__ out, int total, int n_agents,
+                           int* __restrict__ out, int n_views, int n_agents,
                            int h, int w, int vh, int vw, int n_exits,
-                           int remove_white) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c = t % vw;
-  const int rest = t / vw;
-  const int r = rest % vh;
-  const int view = rest / vh;
-  const int lane = view / n_agents;
-  const int ccy = cy[view], ccx = cx[view];
-  const int* b = board + (size_t)lane * h * w;
-  const int* g = goals + (size_t)lane * h * w;
+                           int views_per_block, int remove_white,
+                           FastDiv per_lane, FastDiv per_row,
+                           FastDiv per_col, FastDiv per_view) {
+  extern __shared__ __align__(16) int smem[];
+  const int hw = h * w;
+  const int vhw = vh * vw;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int v0 = blockIdx.x * views_per_block;  // first view of the block
+  const int nv = min(views_per_block, n_views - v0);
+  const int lane0 = per_lane(v0);
+  const int a0 = v0 - lane0 * n_agents;
+  int* rowoff = smem;
+  int* colx = rowoff + views_per_block * vh;
+  int* slots = colx + views_per_block * vw;
+  int* cells = slots + views_per_block * n_exits;
+  // The block's lanes' boards; offsets below are 32-bit from here (the
+  // wrapper checks views_per_block * h * w).
+  const int* b = board + (size_t)lane0 * hw;
+  const int* g = goals + (size_t)lane0 * hw;
+  int* dst = out + (size_t)v0 * vhw;
   const bool rw = remove_white != 0;
 
-  const int y = floor_mod(ccy - vh / 2 + r, h);
-  const int x = floor_mod(ccx - vw / 2 + c, w);
-  int v = packed_word(b[y * w + x], g[y * w + x], rw);
-
-  const int* el = exit_locs + (size_t)lane * n_exits * 2;
-  const uint8_t* ev = exit_valid + (size_t)lane * n_exits;
-  for (int e = 0; e < n_exits; ++e) {
-    if (!ev[e]) continue;
-    const int ey = el[2 * e], ex = el[2 * e + 1];
-    if (exit_slot(ey, ex, ccy, ccx, h, w, vh, vw) == r * vw + c)
-      v = packed_word(b[ey * w + ex], g[ey * w + ex], rw);
+  // Prologue: the row offsets (from the block's first lane's board) and
+  // the columns of each view, once a row and once a column, and the slots
+  // and cells of the block's exits.
+  const int n_rows = nv * vh, n_cols = nv * vw, n_hits = nv * n_exits;
+  const int col0 = (n_rows + 31) & ~31;
+  const int hit0 = col0 + ((n_cols + 31) & ~31);
+#pragma unroll 1
+  for (int i = tid; i < hit0 + n_hits; i += nt) {
+    if (i < n_rows) {
+      const int vi = per_row(i);
+      const int y1 = wrap_mod(cy[v0 + vi] - vh / 2, h);
+      rowoff[i] = per_lane(a0 + vi) * hw + wrap_mod(y1 + i - vi * vh, h) * w;
+    } else if (i >= col0 && i < col0 + n_cols) {
+      const int j = i - col0;
+      const int vi = per_col(j);
+      colx[j] = wrap_mod(wrap_mod(cx[v0 + vi] - vw / 2, w) + j - vi * vw, w);
+    } else if (i >= hit0) {
+      const int k = i - hit0;
+      const ExitHit x = exit_hit(k, cy, cx, exit_locs, exit_valid, v0, lane0,
+                                 a0, per_lane, per_view, h, w, vh, vw,
+                                 n_exits);
+      slots[k] = x.slot;
+      cells[k] = x.cell;
+    }
   }
-  out[t] = v;
+  // The body's first element (v, r, c) = tid and its step nt.
+  const int drows = per_col(nt);
+  const int dc = nt - drows * vw;
+  const int dv = per_row(drows);
+  const int dr = drows - dv * vh;
+  int r = per_col(tid);
+  int c = tid - r * vw;
+  int v = per_row(r);
+  r -= v * vh;
+  __syncthreads();
+
+  // The thread's first exit's words join the body's loads (a barrier
+  // would wait for loads made before it).
+  const bool first_hit = tid < n_hits && slots[tid] >= 0;
+  int bw0 = 0, gw0 = 0;
+  if (first_hit) {
+    bw0 = b[cells[tid]];
+    gw0 = g[cells[tid]];
+  }
+
+  // Element e = (v * vh + r) * vw + c of the block's views. A thread takes
+  // WINDOW_UNROLL elements nt apart at a time; (v, r, c) steps by nt
+  // elements by compare and subtract, and past the last view reads the
+  // last view's tables, so that no branch stands before the loads.
+  const int total = nv * vhw;
+#pragma unroll 1
+  for (int e0 = tid; e0 < total; e0 += WINDOW_UNROLL * nt) {
+    int idx[WINDOW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < WINDOW_UNROLL; ++u) {
+      const int vu = min(v, nv - 1);
+      idx[u] = rowoff[vu * vh + r] + colx[vu * vw + c];
+      c += dc;
+      r += dr;
+      v += dv;
+      if (c >= vw) {
+        c -= vw;
+        ++r;
+      }
+      if (r >= vh) {
+        r -= vh;
+        ++v;
+      }
+    }
+    int bw[WINDOW_UNROLL], gw[WINDOW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < WINDOW_UNROLL; ++u) {
+      if (e0 + u * nt < total) {
+        bw[u] = b[idx[u]];
+        gw[u] = g[idx[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WINDOW_UNROLL; ++u) {
+      if (e0 + u * nt < total)
+        dst[e0 + u * nt] = packed_word(bw[u], gw[u], rw);
+    }
+  }
+  if (n_exits == 0) return;
+
+  // Exits once a view, after a barrier that orders their stores after the
+  // body's: a valid exit writes its word to its slot unless a later exit
+  // of the same view has the same slot (later exits win).
+  __syncthreads();
+#pragma unroll 1
+  for (int k = tid; k < n_hits; k += nt) {
+    const int slot = slots[k];
+    if (slot < 0) continue;
+    const int vk = per_view(k);
+    bool later = false;
+#pragma unroll 1
+    for (int k2 = k + 1; k2 < (vk + 1) * n_exits; ++k2)
+      later |= slots[k2] == slot;
+    if (later) continue;
+    int bw = bw0, gw = gw0;
+    if (k != tid) {
+      bw = b[cells[k]];
+      gw = g[cells[k]];
+    }
+    dst[vk * vhw + slot] = packed_word(bw, gw, rw);
+  }
 }
 
 }  // namespace
@@ -240,15 +428,25 @@ extern "C" int sl_recenter_views_global(const void* board, const void* goals,
                                         const void* exit_valid, void* out,
                                         int batch, int n_agents, int h,
                                         int w, int vh, int vw, int n_exits,
-                                        int threads, int remove_white,
-                                        void* stream) {
-  const int total = batch * n_agents * vh * vw;
-  if (total == 0) return 0;
-  recenter_global_kernel<<<(total + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
+                                        int views_per_block, int threads,
+                                        int remove_white, void* stream) {
+  const int n_views = batch * n_agents;
+  if (n_views == 0 || vh == 0 || vw == 0) return 0;
+  const int blocks = (n_views + views_per_block - 1) / views_per_block;
+  const size_t smem =
+      sizeof(int) * (size_t)views_per_block * (vh + vw + 2 * n_exits);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        recenter_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  recenter_window_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const int*)board, (const int*)goals, (const int*)cy, (const int*)cx,
-      (const int*)exit_locs, (const uint8_t*)exit_valid, (int*)out, total,
-      n_agents, h, w, vh, vw, n_exits, remove_white);
+      (const int*)exit_locs, (const uint8_t*)exit_valid, (int*)out, n_views,
+      n_agents, h, w, vh, vw, n_exits, views_per_block, remove_white,
+      FastDiv(n_agents), FastDiv(vh), FastDiv(vw),
+      FastDiv(n_exits > 0 ? n_exits : 1));
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,12 @@ Views larger than the board tile it, as the JAX package's XLA path
 The wrapper launches a kernel for CUDA tensors and runs
 :func:`recenter_views_plain` for CPU tensors. On CUDA,
 :func:`view_launch_shape` picks the staged form (a block gathers the views
-of a few lanes out of shared memory) or, for lanes too large to stage, the
-global-memory form. :mod:`._build` counts the launches of each.
+of a few lanes out of shared memory) or, for boards above ``MAX_CELLS``
+and lanes too large to stage, the windowed form (a block gathers a run of
+views from device memory through per-view row and column tables;
+:func:`window_launch_shape`).
+:mod:`._build` counts the launches of each (the windowed form's as
+``recenter_views_global``).
 """
 
 import functools
@@ -27,7 +31,7 @@ import torch
 
 from ..core import cells as C
 from . import _build
-from .physics import MAX_SMEM_BYTES, _require
+from .physics import MAX_CELLS, MAX_SMEM_BYTES, _require
 
 #: View elements (or board cells) a thread of the staged form takes, which
 #: sizes its block.
@@ -38,8 +42,16 @@ ELEMENTS_PER_THREAD = 8
 #: PR 3).
 LANES_PER_BLOCK = (1, 2, 4, 8, 16)
 _TARGET_BLOCKS = 256
-#: Threads a block of the global-memory form.
-GLOBAL_THREADS = 256
+#: Threads a block of the windowed form, and the fewest blocks a batch
+#: should give; views a block are the most of ``VIEWS_PER_BLOCK`` that
+#: leave that many. The layout sweep at 25x25 views on 192x192 boards
+#: (``chip_sweep.py views``, PERF.md): at 64 lanes one view and 256
+#: threads a block was best (512 threads 6% slower, 128 18%); at 4096, 8
+#: views and 256 threads came within 2% of the best layout (8 or 16 views
+#: and 512 threads), where one view a block took twice as long.
+WINDOW_THREADS = 256
+VIEWS_PER_BLOCK = (1, 2, 4, 8, 16)
+_WINDOW_TARGET_BLOCKS = 512
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -65,15 +77,22 @@ def view_block_threads(lanes, a, h, w, vh, vw,
 def view_launch_shape(batch, a, h, w, vh, vw):
     """(lanes_per_block, threads, shared bytes) of a K3 launch.
 
-    ``lanes_per_block`` 0 selects the global-memory form: one lane's board,
-    goals and tables do not fit the card's shared memory. Otherwise the
-    count is the largest of ``LANES_PER_BLOCK`` that leaves at least
+    ``lanes_per_block`` 0 selects the windowed form, with
+    ``WINDOW_THREADS`` threads a block and no staged boards
+    (:func:`window_launch_shape` gives its views a block and shared bytes)
+    for boards above ``MAX_CELLS`` cells, as K1 and K2 take their tiled
+    forms there (the staged form would stage two whole boards for a view
+    or two, and ran 1.6-15x slower on 112x112 to 131x97 boards at B = 1,
+    7, 64 and 512: ``chip_sweep.py views``, PERF.md), and for lanes whose
+    board, goals and tables do not fit the card's shared memory. Otherwise
+    the count is the largest of ``LANES_PER_BLOCK`` that leaves at least
     ``_TARGET_BLOCKS`` blocks and fits the shared memory (above 48 KB the
     kernel opts in), never more than the batch holds: 16 lanes a block at
     26x26 and B = 4096, 2 at B = 512.
     """
-    if view_smem_bytes(1, a, h, w, vh, vw) > MAX_SMEM_BYTES:
-        return 0, GLOBAL_THREADS, 0
+    if h * w > MAX_CELLS or view_smem_bytes(1, a, h, w, vh, vw) > \
+            MAX_SMEM_BYTES:
+        return 0, WINDOW_THREADS, 0
     best = 1
     for n in LANES_PER_BLOCK[1:]:
         if n > batch or -(-batch // n) < _TARGET_BLOCKS or \
@@ -82,6 +101,33 @@ def view_launch_shape(batch, a, h, w, vh, vw):
         best = n
     return (best, view_block_threads(best, a, h, w, vh, vw),
             view_smem_bytes(best, a, h, w, vh, vw))
+
+
+def window_smem_bytes(views, e, vh, vw):
+    """Shared bytes of a windowed K3 block of ``views`` views: a row-offset
+    and a column table a view and the slot and cell of each of its ``e``
+    exits (``csrc/obs.cu::recenter_window_kernel``)."""
+    return 4 * views * (vh + vw + 2 * e)
+
+
+@functools.lru_cache(maxsize=64)
+def window_launch_shape(batch, a, e, vh, vw):
+    """(views_per_block, threads, shared bytes) of a windowed K3 launch: the
+    most views of ``VIEWS_PER_BLOCK`` that leave ``_WINDOW_TARGET_BLOCKS``
+    blocks and fit the shared memory, ``WINDOW_THREADS`` threads. One view
+    a block at 64 lanes of one agent, 8 at 4096. Raises if one view's
+    tables and exits do not fit."""
+    best = 1
+    for n in VIEWS_PER_BLOCK[1:]:
+        if -(-batch * a // n) < _WINDOW_TARGET_BLOCKS or \
+                window_smem_bytes(n, e, vh, vw) > MAX_SMEM_BYTES:
+            break
+        best = n
+    smem = window_smem_bytes(best, e, vh, vw)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("recenter_views: a %dx%d view's tables and %d exits "
+                         "need %d bytes of shared memory" % (vh, vw, e, smem))
+    return best, WINDOW_THREADS, smem
 
 
 def packed_board(board, goals, remove_white_goals=True):
@@ -160,7 +206,11 @@ def recenter_views(board, goals, cy, cx, exit_locs, exit_valid, *,
     if lanes:
         _build.launch("sl_recenter_views", dev, *args, lanes, threads,
                       int(bool(remove_white_goals)))
-    else:
-        _build.launch("sl_recenter_views_global", dev, *args, threads,
-                      int(bool(remove_white_goals)))
+        return out
+    views, threads, _ = window_launch_shape(b, a, e, vh, vw)
+    if views * h * w > _INT32_MAX:
+        raise ValueError("recenter_views: %d lanes of %dx%d boards a block "
+                         "exceed 32-bit indexing" % (views, h, w))
+    _build.launch("sl_recenter_views_global", dev, *args, views, threads,
+                  int(bool(remove_white_goals)))
     return out

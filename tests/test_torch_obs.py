@@ -110,6 +110,35 @@ def test_view_larger_than_board_matches_jax(shape, view, a, n_exits):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("shape", [(192, 192), (12, 2600)])
+@pytest.mark.parametrize("a", [1, 3])
+@pytest.mark.parametrize("n_exits", [0, 2])
+def test_unstaged_boards_match_jax(shape, a, n_exits):
+    """Boards above K3's staging limit (the windowed form's shapes on the
+    card; 12x2600 is shorter than the view, which tiles it): the port's
+    views against JAX's ``get_obs_batch``, exactly."""
+    from safelife_tpu_torch.ops import obs as O
+
+    h, w = shape
+    assert O.view_launch_shape(3, a, h, w, 25, 25)[0] == 0
+    rng = np.random.default_rng(hash((shape, a, n_exits)) % 2 ** 31)
+    board, goals, locs, mask, el, ev = _case(rng, 3, a, n_exits, h=h, w=w)
+    locs[..., 0] = rng.integers(0, h, (3, a))
+    locs[..., 1] = rng.integers(0, w, (3, a))
+    el[..., 1] = rng.integers(0, w, (3, n_exits))
+    cfg = JE.EnvConfig(view_shape=(25, 25), output_channels=None)
+    ref = np.asarray(JE.get_obs_batch(
+        cfg, *[jnp.asarray(x) for x in (board, goals, locs, mask, el, ev)]))
+    center = np.where(mask[..., None], locs, 0).astype(np.int32)
+    t = torch.from_numpy
+    got = ops.recenter_views(
+        t(board), t(goals), t(np.ascontiguousarray(center[..., 0])),
+        t(np.ascontiguousarray(center[..., 1])), t(el), t(ev),
+        view_shape=(25, 25)).numpy()
+    assert got.shape == ref.shape == (3, a, 25, 25)
+    np.testing.assert_array_equal(got, ref)
+
+
 @pytest.mark.parametrize("args,expected", [
     # The main path: 26x26 prune-dynamic boards, one agent, 25x25 views.
     ((4096, 1, 26, 26, 25, 25), (16, 1024, (2 * 16 * 676 + 16 * 50) * 4)),
@@ -118,18 +147,49 @@ def test_view_larger_than_board_matches_jax(shape, view, a, n_exits):
     # Views larger than the board: the threads follow the elements.
     ((4096, 3, 3, 3, 25, 25), (16, 1024, (144 + 144 + 16 * 3 * 50) * 4)),
     ((4, 3, 26, 26, 200, 200), (1, 1024, (2 * 676 + 3 * 400) * 4)),
-    # One lane above 48 KB opts in; above 227 KB it takes the global-memory
+    # One lane above 48 KB opts in; above 227 KB it takes the windowed
     # form.
     ((64, 1, 96, 128, 25, 25), (1, 1024, (2 * 12288 + 50) * 4)),
     ((64, 1, 192, 192, 25, 25), (0, 256, 0)),
     # The boards of a block are padded to 16 bytes before the goals.
     ((1, 1, 1, 1, 1, 1), (1, 32, (4 + 1 + 2) * 4)),
+    # The windowed form at any batch: window_launch_shape sizes its block.
+    ((4096, 1, 192, 192, 25, 25), (0, 256, 0)),
+    ((1, 1, 173, 173, 25, 25), (0, 256, 0)),
+    # Boards above MAX_CELLS that one lane a block could stage.
+    ((64, 1, 112, 112, 25, 25), (0, 256, 0)),
+    ((7, 1, 3, 4200, 25, 25), (0, 256, 0)),
 ])
 def test_view_launch_shape(args, expected):
     """Lanes a block, threads and shared bytes of K3 launches: the most
     lanes (of 1, 2, 4, 8, 16) that leave 256 blocks, a thread for 8
-    elements or cells, and the global-memory form for lanes too large to
-    stage."""
+    elements or cells, and the windowed form for boards above MAX_CELLS
+    and lanes too large to stage."""
     from safelife_tpu_torch.ops import obs as O
 
     assert O.view_launch_shape(*args) == expected
+
+
+@pytest.mark.parametrize("args,expected", [
+    # 64 lanes of 192x192, one agent and one exit: a view a block.
+    ((64, 1, 1, 25, 25), (1, 256, (25 + 25 + 2) * 4)),
+    # 4096 lanes: 8 views a block leave 512 blocks.
+    ((4096, 1, 1, 25, 25), (8, 256, 8 * 52 * 4)),
+    # Three agents a lane: 12,288 views, 16 a block.
+    ((4096, 3, 2, 25, 25), (16, 256, 16 * 54 * 4)),
+    ((1, 1, 0, 25, 25), (1, 256, 50 * 4)),
+])
+def test_window_launch_shape(args, expected):
+    """Views a block, threads and shared bytes of the windowed K3: the
+    most views (of 1, 2, 4, 8, 16) that leave 512 blocks, 256 threads, a
+    row and a column table a view and a slot and a cell an exit."""
+    from safelife_tpu_torch.ops import obs as O
+
+    assert O.window_launch_shape(*args) == expected
+
+
+def test_window_launch_shape_refuses_what_does_not_fit():
+    from safelife_tpu_torch.ops import obs as O
+
+    with pytest.raises(ValueError):
+        O.window_launch_shape(1, 1, 1, 30000, 30000)
