@@ -1,0 +1,8 @@
+"""Policy-driven rollout throughput: lanes x steps of every whole
+``run_episodes`` call of the window over the window's wall time, the clock
+stopped after the device finished."""
+
+
+def read(t):
+    w = t.work
+    return w["env_steps"] / w["seconds"] if "env_steps" in w else None
