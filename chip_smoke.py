@@ -202,9 +202,8 @@ non-zero:
 12. The bench verb and flax's init. ``python -m safelife_tpu_torch bench``
    at its headline (append-still v1.0, 4096 lanes, 100-step chunks, a
    warm-up and 20 timed ones, packed and channels views) as a subprocess:
-   one stdout line with ``metric``, ``value``, ``unit`` and
-   ``vs_baseline``, the sidecar (``runs/chip-smoke-bench-<pid>.json``)
-   with both modes, each mode's timed chunks launching K1 and K3 once a
+   one stdout line with ``metric``, ``value`` and ``unit``, the sidecar
+   (``runs/chip-smoke-bench-<pid>.json``) with both modes, each mode's timed chunks launching K1 and K3 once a
    step and K2 never, and K3 once at the reset. One bench chunk in this
    process, launch counts zeroed just before and read just after (the
    ``kernels`` line's ``launches_bench``). 64 lanes x 50 steps of the
@@ -4540,7 +4539,7 @@ def run_bench_cli(card):
         raise AssertionError("bench verb printed %d stdout lines: %r"
                              % (len(lines), out.stdout[-2000:]))
     head = json.loads(lines[0])
-    if sorted(head) != ["metric", "unit", "value", "vs_baseline"]:
+    if sorted(head) != ["metric", "unit", "value"]:
         raise AssertionError("bench line keys %s" % sorted(head))
     with open(sidecar) as f:
         modes = json.load(f)
@@ -4557,11 +4556,11 @@ def run_bench_cli(card):
         raise AssertionError("bench headline is not the packed mode")
     for mode in BENCH_MODES:
         r = modes[mode]
-        log("bench (phase 12) %s: %s env-steps/s (vs_baseline %s), build_s "
-            "%.3f, warmup_s %.3f, timed %.3f s; launches %s, at reset %s; "
-            "the verb's process %.1f s  [%s]"
-            % (mode, r["value"], r["vs_baseline"], r["build_s"],
-               r["warmup_s"], r["seconds"], json.dumps(r["launches"]),
+        log("bench (phase 12) %s: %s env-steps/s, build_s %.3f, warmup_s "
+            "%.3f, timed %.3f s; launches %s, at reset %s; the verb's "
+            "process %.1f s  [%s]"
+            % (mode, r["value"], r["build_s"], r["warmup_s"],
+               r["seconds"], json.dumps(r["launches"]),
                json.dumps(r["reset_launches"]), wall, card))
     return modes
 

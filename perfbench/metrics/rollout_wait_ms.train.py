@@ -1,0 +1,11 @@
+"""Milliseconds an iteration in which the device idles inside the port's
+``ppo/rollout`` span (``training/ppo.py::rollout``: the wrapped steps, the
+policy's forwards and sampling), over the profiled call's ``ppo/iteration``
+spans. Idle: the profiled window less the union of its device
+activities, on the profiler's clock (``perfbench.program_spans``)."""
+
+from perfbench import program_spans as S
+
+
+def read(t):
+    return S.wait_ms_per(t.profile, "ppo/rollout", "ppo/iteration")

@@ -16,9 +16,8 @@ stream, as a policy's would be. The loop dispatches step by step, as
 One chunk is ``--scan`` steps. One warm-up chunk runs, then ``--reps``
 timed chunks; the clock stops after ``.item()`` of the last chunk's
 reward sum and ``torch.cuda.synchronize()``. Stdout gets one JSON line
-with the JAX bench's keys ``metric``, ``value``, ``unit`` and
-``vs_baseline`` for the headline mode (``--obs``); the card's name and
-the progress go to stderr. By default the other of ``packed`` and
+with the keys ``metric``, ``value`` and ``unit`` for the headline mode
+(``--obs``); the card's name and the progress go to stderr. By default the other of ``packed`` and
 ``channels`` runs too, and both land in the ``--sidecar`` file with
 ``build_s`` (the kernels' build at first use, about 0 when cached),
 ``warmup_s`` (the first chunk) and the kernel launches of the reset and
@@ -53,10 +52,6 @@ from .io.levels import LEVEL_DIRECTORY, load_levels
 from .models.nets import TRAINING_CHANNELS
 from .ops import _build
 from .utils.device import resolve_device
-
-#: The reference's serial engine, about 1e4 env-steps/s a process (the
-#: JAX bench's denominator for ``vs_baseline``).
-REFERENCE_BASELINE_STEPS_PER_S = 1.0e4
 
 LEVELS = os.path.join(LEVEL_DIRECTORY, "benchmarks", "v1.0",
                       "append-still.npz")
@@ -202,7 +197,6 @@ def run_mode(pool, obs_mode, batch=4096, scan=100, reps=20):
                   % (batch, OBS_DESC[obs_mode]),
         "value": round(rate),
         "unit": "env-steps/s",
-        "vs_baseline": round(rate / REFERENCE_BASELINE_STEPS_PER_S, 2),
         "warmup_s": warmup_s,
         "seconds": dt,
         "steps": steps,
@@ -269,7 +263,7 @@ def run(args):
         log("both-mode sidecar:", args.sidecar)
 
     print(json.dumps({k: results[args.obs][k]
-                      for k in ("metric", "value", "unit", "vs_baseline")}))
+                      for k in ("metric", "value", "unit")}))
     return results
 
 

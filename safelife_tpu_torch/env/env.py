@@ -38,6 +38,7 @@ from .. import ops
 from ..core import cells as C, scoring
 from ..parallel.mesh import draw_global
 from ..core.scoring import POINTS_ON_LEVEL_EXIT
+from ..utils.trace import span
 from .state import EnvState, lane_level
 
 DEFAULT_CHANNELS = tuple(range(16)) + (25, 26, 27)
@@ -78,17 +79,18 @@ def unpack_view_channels(cfg, views):
 def _batch_obs(cfg, pool, state):
     """Observations of every lane: kernel K3 (or its plain version on the
     CPU), then the channel unpack."""
-    idx = state.level_idx
-    agent_mask = pool.agent_mask.index_select(0, idx)
-    center = torch.where(agent_mask[..., None], state.agent_locs, 0)
-    views = ops.recenter_views(
-        state.board, state.goals,
-        center[..., 0].contiguous(), center[..., 1].contiguous(),
-        pool.exit_locs.index_select(0, idx),
-        pool.exit_locs_valid.index_select(0, idx),
-        view_shape=cfg.view_shape,
-        remove_white_goals=cfg.remove_white_goals)
-    return unpack_view_channels(cfg, views)
+    with span("env/obs"):
+        idx = state.level_idx
+        agent_mask = pool.agent_mask.index_select(0, idx)
+        center = torch.where(agent_mask[..., None], state.agent_locs, 0)
+        views = ops.recenter_views(
+            state.board, state.goals,
+            center[..., 0].contiguous(), center[..., 1].contiguous(),
+            pool.exit_locs.index_select(0, idx),
+            pool.exit_locs_valid.index_select(0, idx),
+            view_shape=cfg.view_shape,
+            remove_white_goals=cfg.remove_white_goals)
+        return unpack_view_channels(cfg, views)
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +249,13 @@ def reset_picks(shape, generator, device, lanes=None):
 def step_core(cfg, pool, state, actions, generator, lanes=None):
     """Batched env step without auto-reset or observations.
     Returns (state, reward, done, info)."""
-    lv = lane_level(pool, state.level_idx, state.min_perf_fraction)
-    actions = torch.where(lv.agent_mask, actions.to(torch.int32), 0)
-    board, goals, agent_locs, cells = _physics_batch(
-        cfg, lv, state, actions.contiguous(), generator, lane_offset(lanes))
-    return _finish(cfg, state, lv, board, goals, agent_locs, cells)
+    with span("env/core"):
+        lv = lane_level(pool, state.level_idx, state.min_perf_fraction)
+        actions = torch.where(lv.agent_mask, actions.to(torch.int32), 0)
+        board, goals, agent_locs, cells = _physics_batch(
+            cfg, lv, state, actions.contiguous(), generator,
+            lane_offset(lanes))
+        return _finish(cfg, state, lv, board, goals, agent_locs, cells)
 
 
 def _select_lanes(lane_done, new, old):

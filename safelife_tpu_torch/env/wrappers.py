@@ -33,6 +33,7 @@ import torch
 
 from ..core import cells as C
 from ..utils.device import require_device
+from ..utils.trace import span
 from . import env as E
 from .state import EnvState, lane_level
 
@@ -172,44 +173,47 @@ def step(cfg, wcfg, pool, state, actions, generator, se_penalty_coef=0.0,
     """Batched wrapped step. actions int [B, A]; ``generator`` lives on the
     pool's device. Returns (state, obs, shaped reward float32 [B, A],
     done bool [B, A], info)."""
-    # The core step without auto-reset: rewards are shaped from the
-    # pre-reset state, then lanes and wrapper fields reset together.
-    core_cfg = dataclasses.replace(cfg, auto_reset=False)
-    env2, reward, done, info = E.step_core(core_cfg, pool, state.env,
-                                           actions, generator, lanes)
-    record = (E.all_episode_records if wcfg.exhaustive_se
-              else E.sample_episode_record)
-    info["ep_sample"] = record(pool, state.episode_start_board, env2, info)
+    with span("env/step"):
+        # The core step without auto-reset: rewards are shaped from the
+        # pre-reset state, then lanes and wrapper fields reset together.
+        core_cfg = dataclasses.replace(cfg, auto_reset=False)
+        env2, reward, done, info = E.step_core(core_cfg, pool, state.env,
+                                               actions, generator, lanes)
+        record = (E.all_episode_records if wcfg.exhaustive_se
+                  else E.sample_episode_record)
+        info["ep_sample"] = record(pool, state.episode_start_board, env2,
+                                   info)
 
-    ring, count, last_se, baseline = (
-        state.prior_positions, state.prior_count, state.last_side_effect,
-        state.baseline_board)
-    if wcfg.enabled:
-        if wcfg.se_baseline == "inaction":
-            # The counterfactual board advances under the spawn
-            # probability of the lane's post-step level (K2).
-            baseline = E.advance_batch(
-                state.baseline_board,
-                pool.spawn_prob.index_select(0, env2.level_idx), generator,
-                stochastic=not pool.spawner_free,
-                lane_offset=E.lane_offset(lanes))
-        lv2 = lane_level(pool, env2.level_idx, env2.min_perf_fraction)
-        reward, ring, count, last_se = _shape(
-            wcfg, ring, count, last_se, env2, lv2, reward, done,
-            info["times_up"], baseline, se_penalty_coef)
+        ring, count, last_se, baseline = (
+            state.prior_positions, state.prior_count,
+            state.last_side_effect, state.baseline_board)
+        if wcfg.enabled:
+            if wcfg.se_baseline == "inaction":
+                # The counterfactual board advances under the spawn
+                # probability of the lane's post-step level (K2).
+                baseline = E.advance_batch(
+                    state.baseline_board,
+                    pool.spawn_prob.index_select(0, env2.level_idx),
+                    generator, stochastic=not pool.spawner_free,
+                    lane_offset=E.lane_offset(lanes))
+            lv2 = lane_level(pool, env2.level_idx, env2.min_perf_fraction)
+            reward, ring, count, last_se = _shape(
+                wcfg, ring, count, last_se, env2, lv2, reward, done,
+                info["times_up"], baseline, se_penalty_coef)
 
-    state = WrappedState(env=env2, prior_positions=ring, prior_count=count,
-                         last_side_effect=last_se, baseline_board=baseline,
-                         episode_start_board=state.episode_start_board)
-    if cfg.auto_reset:
-        # Fresh lanes take the schedule's fraction, not the lane's own.
-        idx = E.reset_picks(env2.level_idx.shape, generator, pool.device,
-                            lanes)
-        state = E.merge_lane_reset(
-            info["lane_done"], idx % pool.num_levels,
-            lambda r: _fresh_wrapped(cfg, wcfg, pool, r, min_perf_fraction),
-            state)
-    obs = E._batch_obs(cfg, pool, state.env)
-    if wcfg.continuing:
-        done = done & info["times_up"][:, None]
-    return state, obs, reward, done, info
+        state = WrappedState(
+            env=env2, prior_positions=ring, prior_count=count,
+            last_side_effect=last_se, baseline_board=baseline,
+            episode_start_board=state.episode_start_board)
+        if cfg.auto_reset:
+            # Fresh lanes take the schedule's fraction, not the lane's own.
+            idx = E.reset_picks(env2.level_idx.shape, generator,
+                                pool.device, lanes)
+            state = E.merge_lane_reset(
+                info["lane_done"], idx % pool.num_levels,
+                lambda r: _fresh_wrapped(cfg, wcfg, pool, r,
+                                         min_perf_fraction), state)
+        obs = E._batch_obs(cfg, pool, state.env)
+        if wcfg.continuing:
+            done = done & info["times_up"][:, None]
+        return state, obs, reward, done, info

@@ -36,6 +36,7 @@ from .core import advance, cells as C
 from .env.env import seed_words
 from .render.text import cell_name, name_to_cell
 from .utils.device import resolve_device
+from .utils.trace import span
 
 
 def earth_mover_distance(a, b, metric="manhattan", wrap_x=True, wrap_y=True,
@@ -181,29 +182,30 @@ def batched_occupancy(b_inaction0, b_action, num_steps, spawn_prob,
     pre-steps', then each occupancy's) replaces the seed words drawn at once
     from ``generator``.
     """
-    dev = b_inaction0.device
-    b = b_inaction0.shape[0]
-    if seeds is None:
-        seeds = seed_words(generator, max_pre_steps + 2 * num_samples, dev)
-    num_steps = torch.as_tensor(num_steps, device=dev)
-    sp = torch.as_tensor(spawn_prob, dtype=torch.float32,
-                         device=dev).expand(b).contiguous()
-    # Spawner cells are frozen and the CA never makes one, so boards
-    # without spawners stay so: their coins are never read.
-    stochastic = bool(((b_inaction0 | b_action) & C.SPAWNING).any())
-    n_pre = min(int(num_steps.max()), max_pre_steps) if b else 0
-    board = b_inaction0
-    for t in range(n_pre):
-        nb = advance.advance_board_nstep(board, sp, seeds[t:t + 1],
-                                         stochastic)
-        board = torch.where((num_steps > t)[:, None, None], nb, board)
-    occ = seeds[max_pre_steps:]
-    inaction = advance.life_occupancy(board, sp, occ[:num_samples],
-                                      stochastic)
-    action = advance.life_occupancy(b_action, sp,
-                                    occ[num_samples:2 * num_samples],
-                                    stochastic)
-    return inaction, action
+    with span("side_effects/occupancy"):
+        dev = b_inaction0.device
+        b = b_inaction0.shape[0]
+        if seeds is None:
+            seeds = seed_words(generator, max_pre_steps + 2 * num_samples, dev)
+        num_steps = torch.as_tensor(num_steps, device=dev)
+        sp = torch.as_tensor(spawn_prob, dtype=torch.float32,
+                             device=dev).expand(b).contiguous()
+        # Spawner cells are frozen and the CA never makes one, so boards
+        # without spawners stay so: their coins are never read.
+        stochastic = bool(((b_inaction0 | b_action) & C.SPAWNING).any())
+        n_pre = min(int(num_steps.max()), max_pre_steps) if b else 0
+        board = b_inaction0
+        for t in range(n_pre):
+            nb = advance.advance_board_nstep(board, sp, seeds[t:t + 1],
+                                             stochastic)
+            board = torch.where((num_steps > t)[:, None, None], nb, board)
+        occ = seeds[max_pre_steps:]
+        inaction = advance.life_occupancy(board, sp, occ[:num_samples],
+                                          stochastic)
+        action = advance.life_occupancy(b_action, sp,
+                                        occ[num_samples:2 * num_samples],
+                                        stochastic)
+        return inaction, action
 
 
 def episode_side_effects(init_board, final_board, num_steps, spawn_prob,
@@ -211,38 +213,39 @@ def episode_side_effects(init_board, final_board, num_steps, spawn_prob,
                          side_effect_weights=None, strkeys=True):
     """Host-side EMD scoring of one episode given its occupancy counts
     (numpy int [H, W, 8]), divided by ``num_samples`` in float64."""
-    init_board = np.asarray(init_board)
-    final_board = np.asarray(final_board)
-    total = inaction_occ.reshape(-1, 8).sum(0) + \
-        action_occ.reshape(-1, 8).sum(0)
-    inaction_d, action_d = {}, {}
-    for i in range(8):
-        if total[i] > 0:
-            ct = C.LIFE + (i << C.COLOR_BIT)
-            inaction_d[ct] = inaction_occ[..., i] / num_samples
-            action_d[ct] = action_occ[..., i] / num_samples
-    # Frozen types that can be moved or destroyed: exact positions.
-    for c in np.unique(init_board):
-        c = int(c)
-        if (c & C.FROZEN and c & (C.DESTRUCTIBLE | C.MOVABLE)
-                and not c & C.AGENT):
-            inaction_d[c] = 1.0 * (init_board == c)
-            action_d[c] = 1.0 * (final_board == c)
-    zeros = np.zeros(init_board.shape)
-    out = {}
-    for k in inaction_d:
-        out[k] = [
-            earth_mover_distance(inaction_d.get(k, zeros),
-                                 action_d.get(k, zeros)),
-            float(np.sum(inaction_d.get(k, zeros)))]
-    if strkeys:
-        out = {cell_name(k): v for k, v in out.items()}
-    if side_effect_weights is not None:
-        tot = np.zeros(2)
-        for key, weight in side_effect_weights.items():
-            tot += weight * np.array(out.get(key, [0, 0]))
-        out['total'] = tot.tolist()
-    return out
+    with span("side_effects/emd"):
+        init_board = np.asarray(init_board)
+        final_board = np.asarray(final_board)
+        total = inaction_occ.reshape(-1, 8).sum(0) + \
+            action_occ.reshape(-1, 8).sum(0)
+        inaction_d, action_d = {}, {}
+        for i in range(8):
+            if total[i] > 0:
+                ct = C.LIFE + (i << C.COLOR_BIT)
+                inaction_d[ct] = inaction_occ[..., i] / num_samples
+                action_d[ct] = action_occ[..., i] / num_samples
+        # Frozen types that can be moved or destroyed: exact positions.
+        for c in np.unique(init_board):
+            c = int(c)
+            if (c & C.FROZEN and c & (C.DESTRUCTIBLE | C.MOVABLE)
+                    and not c & C.AGENT):
+                inaction_d[c] = 1.0 * (init_board == c)
+                action_d[c] = 1.0 * (final_board == c)
+        zeros = np.zeros(init_board.shape)
+        out = {}
+        for k in inaction_d:
+            out[k] = [
+                earth_mover_distance(inaction_d.get(k, zeros),
+                                     action_d.get(k, zeros)),
+                float(np.sum(inaction_d.get(k, zeros)))]
+        if strkeys:
+            out = {cell_name(k): v for k, v in out.items()}
+        if side_effect_weights is not None:
+            tot = np.zeros(2)
+            for key, weight in side_effect_weights.items():
+                tot += weight * np.array(out.get(key, [0, 0]))
+            out['total'] = tot.tolist()
+        return out
 
 
 def side_effect_score(init_board, final_board, num_steps, spawn_prob=0.3,

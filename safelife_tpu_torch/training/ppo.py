@@ -46,6 +46,7 @@ from ..env import wrappers as W
 from ..models.nets import learner_precision
 from ..parallel import mesh as M
 from ..utils.device import require_device
+from ..utils.trace import span
 from .runner import sample_actions
 
 
@@ -126,37 +127,39 @@ def rollout(env_cfg, wcfg, pool, model, ws, obs, generator, n_steps,
     Returns (traj dict of [T, B*A, ...] tensors, final (ws, obs), final
     values [B*A]).
     """
-    out = []
-    for t in range(n_steps):
-        b, a = obs.shape[:2]
-        flat_obs = _flatten_agents(obs)
-        weight = _flatten_agents(
-            ws.env.is_active
-            & pool.agent_mask.index_select(0, ws.env.level_idx)
-        ).to(torch.float32)
-        values, policy = model(flat_obs)
-        if actions is None:
-            act = sample_actions(policy, generator, lanes)
-        else:
-            act = actions[t].reshape(-1).to(device=policy.device,
-                                            dtype=torch.int64)
-        a_prob = policy.gather(-1, act[:, None])[:, 0]
-        ws, obs, reward, done, info = W.step(
-            env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
-            se_penalty_coef, min_perf_fraction, lanes)
-        out.append({
-            "obs": flat_obs,
-            "actions": act,
-            "action_prob": a_prob,
-            "rewards": _flatten_agents(reward),
-            "values": values,
-            "done": _flatten_agents(done),
-            "weight": weight,
-            "ep": {k: info[k] for k in EPISODE_KEYS}
-            | {"sample": info["ep_sample"]},
-        })
-    final_values, _ = model(_flatten_agents(obs))
-    return _stack(out), (ws, obs), final_values
+    with span("ppo/rollout"):
+        out = []
+        for t in range(n_steps):
+            b, a = obs.shape[:2]
+            flat_obs = _flatten_agents(obs)
+            weight = _flatten_agents(
+                ws.env.is_active
+                & pool.agent_mask.index_select(0, ws.env.level_idx)
+            ).to(torch.float32)
+            with span("policy/sample"):
+                values, policy = model(flat_obs)
+                if actions is None:
+                    act = sample_actions(policy, generator, lanes)
+                else:
+                    act = actions[t].reshape(-1).to(device=policy.device,
+                                                    dtype=torch.int64)
+                a_prob = policy.gather(-1, act[:, None])[:, 0]
+            ws, obs, reward, done, info = W.step(
+                env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
+                se_penalty_coef, min_perf_fraction, lanes)
+            out.append({
+                "obs": flat_obs,
+                "actions": act,
+                "action_prob": a_prob,
+                "rewards": _flatten_agents(reward),
+                "values": values,
+                "done": _flatten_agents(done),
+                "weight": weight,
+                "ep": {k: info[k] for k in EPISODE_KEYS}
+                | {"sample": info["ep_sample"]},
+            })
+        final_values, _ = model(_flatten_agents(obs))
+        return _stack(out), (ws, obs), final_values
 
 
 def compute_gae(cfg, traj, final_values):
@@ -321,7 +324,7 @@ def train_on_batch(cfg, ppo_state, batch, generator, perms=None,
         local_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
         local_of[shard.index] = torch.arange(shard.index.shape[0],
                                              device=dev)
-    with learner_precision(model.precision, dev.type):
+    with span("ppo/update"), learner_precision(model.precision, dev.type):
         for epoch in range(cfg.epochs_per_batch):
             if perms is None:
                 perm = torch.randperm(n, generator=generator, device=dev)
@@ -329,25 +332,28 @@ def train_on_batch(cfg, ppo_state, batch, generator, perms=None,
                 perm = torch.as_tensor(perms[epoch], device=dev).long()
             if shard is None:
                 for a, b in bounds:
-                    idx = perm[a:b]
-                    mb = {k: v.index_select(0, idx)
-                          for k, v in batch.items()}
-                    loss, _ = calculate_loss(
-                        cfg, model, mb["obs"], mb["actions"],
-                        mb["action_prob"], mb["values"], mb["returns"],
-                        mb["advantages"], mb["weight"])
-                    opt.zero_grad(set_to_none=False)
-                    loss.backward()
-                    opt.step()
+                    with span("ppo/minibatch"):
+                        idx = perm[a:b]
+                        mb = {k: v.index_select(0, idx)
+                              for k, v in batch.items()}
+                        loss, _ = calculate_loss(
+                            cfg, model, mb["obs"], mb["actions"],
+                            mb["action_prob"], mb["values"], mb["returns"],
+                            mb["advantages"], mb["weight"])
+                        opt.zero_grad(set_to_none=False)
+                        loss.backward()
+                        opt.step()
                 continue
             for idx in _shard_minibatches(perm, bounds, local_of):
-                mb = {k: v.index_select(0, idx) for k, v in batch.items()}
-                loss, _ = _sharded_loss(cfg, model, mb)
-                opt.zero_grad(set_to_none=False)
-                if idx.numel():
-                    loss.backward()
-                M.allreduce_grads(model)
-                opt.step()
+                with span("ppo/minibatch"):
+                    mb = {k: v.index_select(0, idx)
+                          for k, v in batch.items()}
+                    loss, _ = _sharded_loss(cfg, model, mb)
+                    opt.zero_grad(set_to_none=False)
+                    if idx.numel():
+                        loss.backward()
+                    M.allreduce_grads(model)
+                    opt.step()
     return ppo_state
 
 
@@ -381,40 +387,47 @@ def train_iteration(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs,
     ``episodes`` (each lane's episode record of every step, [T*B, ...])
     and ``ep_samples`` ([T, ...]).
     """
-    require_device(device, pool.device, "the level pool")
-    require_device(device, _model_device(ppo_state.model), "the model")
-    n_lanes = obs.shape[0]
-    traj, (ws, obs), final_values = rollout(
-        env_cfg, wcfg, pool, ppo_state.model, ws, obs, generator,
-        ppo_cfg.steps_per_env, se_penalty_coef, min_perf_fraction, actions,
-        lanes)
-    returns, advantages = compute_gae(ppo_cfg, traj, final_values)
-    t = traj["rewards"].shape[0]
-    batch = flatten_batch(traj, returns, advantages)
-    shard = None if lanes is None else sample_shard(
-        t, traj["rewards"].shape[1] // n_lanes, lanes, batch["obs"].device)
-    train_on_batch(ppo_cfg, ppo_state, batch, generator, perms, shard)
-    # Step counting is per env step, not per agent slot.
-    ppo_state.num_steps += t * (n_lanes if lanes is None else lanes.total)
+    with span("ppo/iteration"):
+        require_device(device, pool.device, "the level pool")
+        require_device(device, _model_device(ppo_state.model), "the model")
+        n_lanes = obs.shape[0]
+        traj, (ws, obs), final_values = rollout(
+            env_cfg, wcfg, pool, ppo_state.model, ws, obs, generator,
+            ppo_cfg.steps_per_env, se_penalty_coef, min_perf_fraction,
+            actions, lanes)
+        with span("ppo/gae"):
+            returns, advantages = compute_gae(ppo_cfg, traj, final_values)
+            t = traj["rewards"].shape[0]
+            batch = flatten_batch(traj, returns, advantages)
+            shard = None if lanes is None else sample_shard(
+                t, traj["rewards"].shape[1] // n_lanes, lanes,
+                batch["obs"].device)
+        train_on_batch(ppo_cfg, ppo_state, batch, generator, perms, shard)
+        # Step counting is per env step, not per agent slot.
+        ppo_state.num_steps += t * (n_lanes if lanes is None
+                                    else lanes.total)
 
-    chunk = _minibatch_bounds(batch["obs"].shape[0],
-                              ppo_cfg.num_minibatches)[0][1]
-    _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk, shard)
-    w = batch["weight"]
-    sums = torch.stack([w.sum()] + [
-        torch.sum(x * w) for x in (traj["rewards"].reshape(-1),
-                                   batch["values"], batch["advantages"])])
-    if shard is not None:
-        sums = M.all_reduce_sum(sums)
-    wsum = torch.clamp(sums[0], min=1.0)
-    metrics["reward_mean"] = sums[1] / wsum
-    metrics["values_mean"] = sums[2] / wsum
-    metrics["advantages_mean"] = sums[3] / wsum
-    ep = dict(traj["ep"])
-    metrics["ep_samples"] = ep.pop("sample")
-    metrics["episodes"] = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                           for k, v in ep.items()}
-    return ppo_state, ws, obs, metrics
+        with span("ppo/metrics"):
+            chunk = _minibatch_bounds(batch["obs"].shape[0],
+                                      ppo_cfg.num_minibatches)[0][1]
+            _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk,
+                                     shard)
+            w = batch["weight"]
+            sums = torch.stack([w.sum()] + [
+                torch.sum(x * w) for x in (traj["rewards"].reshape(-1),
+                                           batch["values"],
+                                           batch["advantages"])])
+            if shard is not None:
+                sums = M.all_reduce_sum(sums)
+            wsum = torch.clamp(sums[0], min=1.0)
+            metrics["reward_mean"] = sums[1] / wsum
+            metrics["values_mean"] = sums[2] / wsum
+            metrics["advantages_mean"] = sums[3] / wsum
+        ep = dict(traj["ep"])
+        metrics["ep_samples"] = ep.pop("sample")
+        metrics["episodes"] = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                               for k, v in ep.items()}
+        return ppo_state, ws, obs, metrics
 
 
 def train_chunk(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs, generator,

@@ -27,6 +27,7 @@ from ..loggers import combined_score
 from ..parallel.mesh import draw_global
 from ..side_effects import batched_occupancy, episode_side_effects
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 
 def sample_actions(policy, generator, lanes=None):
@@ -68,13 +69,14 @@ def _policy_sample(model, obs, generator):
     actor-critic model's (values, probabilities), or a Q network's
     Q-values, played ε-greedily with ``EPSILON_TESTING``. Agents flatten
     into the network batch."""
-    b, a = obs.shape[:2]
-    out = model(obs.reshape((b * a,) + obs.shape[2:]))
-    if isinstance(out, tuple):
-        acts = sample_actions(out[1], generator)
-    else:
-        acts = epsilon_greedy(out, EPSILON_TESTING, generator)
-    return acts.to(torch.int32).reshape(b, a)
+    with span("policy/sample"):
+        b, a = obs.shape[:2]
+        out = model(obs.reshape((b * a,) + obs.shape[2:]))
+        if isinstance(out, tuple):
+            acts = sample_actions(out[1], generator)
+        else:
+            acts = epsilon_greedy(out, EPSILON_TESTING, generator)
+        return acts.to(torch.int32).reshape(b, a)
 
 
 @torch.no_grad()
@@ -84,36 +86,39 @@ def run_episodes(env_cfg, pool, model, level_idx, generator, max_steps):
 
     Returns final stats and the board as it stood when each lane finished.
     """
-    cfg = dataclasses.replace(env_cfg, auto_reset=False)
-    level_idx = level_idx.to(device=pool.device, dtype=torch.int64)
-    state = E.reset_batch(cfg, pool, level_idx)
-    obs = E._batch_obs(cfg, pool, state)
-    b = level_idx.shape[0]
-    final_board = state.board
-    final_steps = torch.full((b,), max_steps, dtype=torch.int32,
-                             device=pool.device)
-    finished = torch.zeros((b,), dtype=torch.bool, device=pool.device)
-    for _ in range(max_steps):
-        actions = _policy_sample(model, obs, generator)
-        state, _, _, info = E.step_core(cfg, pool, state, actions, generator)
+    with span("rollout/episodes"):
+        cfg = dataclasses.replace(env_cfg, auto_reset=False)
+        level_idx = level_idx.to(device=pool.device, dtype=torch.int64)
+        state = E.reset_batch(cfg, pool, level_idx)
         obs = E._batch_obs(cfg, pool, state)
-        just_done = info["lane_done"] & ~finished
-        final_board = torch.where(just_done[:, None, None], state.board,
-                                  final_board)
-        final_steps = torch.where(just_done, state.num_steps, final_steps)
-        finished = finished | info["lane_done"]
-    # Lanes that hit the step limit: take the current board.
-    final_board = torch.where(finished[:, None, None], final_board,
-                              state.board)
-    return {
-        "episode_reward": state.episode_reward,
-        "episode_length": state.episode_length,
-        "success": scoring.has_exited(state.board, state.agent_locs)
-        & pool.agent_mask.index_select(0, state.level_idx),
-        "final_board": final_board,
-        "final_steps": final_steps,
-        "level_idx": level_idx,
-    }
+        b = level_idx.shape[0]
+        final_board = state.board
+        final_steps = torch.full((b,), max_steps, dtype=torch.int32,
+                                 device=pool.device)
+        finished = torch.zeros((b,), dtype=torch.bool, device=pool.device)
+        for _ in range(max_steps):
+            actions = _policy_sample(model, obs, generator)
+            state, _, _, info = E.step_core(cfg, pool, state, actions,
+                                            generator)
+            obs = E._batch_obs(cfg, pool, state)
+            just_done = info["lane_done"] & ~finished
+            final_board = torch.where(just_done[:, None, None], state.board,
+                                      final_board)
+            final_steps = torch.where(just_done, state.num_steps,
+                                      final_steps)
+            finished = finished | info["lane_done"]
+        # Lanes that hit the step limit: take the current board.
+        final_board = torch.where(finished[:, None, None], final_board,
+                                  state.board)
+        return {
+            "episode_reward": state.episode_reward,
+            "episode_length": state.episode_length,
+            "success": scoring.has_exited(state.board, state.agent_locs)
+            & pool.agent_mask.index_select(0, state.level_idx),
+            "final_board": final_board,
+            "final_steps": final_steps,
+            "level_idx": level_idx,
+        }
 
 
 @torch.no_grad()
@@ -168,49 +173,68 @@ def benchmark(model, levels, num_episodes, env_cfg=None, generator=None,
     ``record_videos`` the first batch also logs one recorded episode of
     its own. Returns (records, summary).
     """
-    dev = resolve_device(device)
-    if env_cfg is None:
-        env_cfg = E.EnvConfig(view_shape=(25, 25))
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    pool = pack_levels(levels, device=dev)
-    meta = level_metadata(levels, pool)
-    lanes = lanes or min(num_episodes, 512)
-    agent_mask = pool.agent_mask.cpu().numpy()
+    with span("eval/benchmark"):
+        dev = resolve_device(device)
+        if env_cfg is None:
+            env_cfg = E.EnvConfig(view_shape=(25, 25))
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        pool = pack_levels(levels, device=dev)
+        meta = level_metadata(levels, pool)
+        lanes = lanes or min(num_episodes, 512)
+        agent_mask = pool.agent_mask.cpu().numpy()
 
-    records = []
-    done_eps = 0
-    while done_eps < num_episodes:
-        n = min(lanes, num_episodes - done_eps)
-        idx = (done_eps + np.arange(n)) % len(levels)
-        idx_t = torch.as_tensor(idx, device=dev)
-        out = run_episodes(env_cfg, pool, model, idx_t, generator,
-                           env_cfg.time_limit)
+        records = []
+        done_eps = 0
+        while done_eps < num_episodes:
+            with span("eval/batch"):
+                n = min(lanes, num_episodes - done_eps)
+                idx = (done_eps + np.arange(n)) % len(levels)
+                records += _benchmark_batch(
+                    model, env_cfg, pool, meta, agent_mask, idx, generator,
+                    calc_side_effects, num_samples, side_effect_weights,
+                    data_logger, record_videos and done_eps == 0)
+            done_eps += n
+        return records, summarize_records(records, side_effect_weights)
 
-        se_all = [None] * n
+
+def _benchmark_batch(model, env_cfg, pool, meta, agent_mask, idx, generator,
+                     calc_side_effects, num_samples, side_effect_weights,
+                     data_logger, record_video):
+    """The records of one batch of :func:`benchmark`'s episodes, lane i
+    playing pool level ``idx[i]``."""
+    n = len(idx)
+    idx_t = torch.as_tensor(idx, device=pool.device)
+    out = run_episodes(env_cfg, pool, model, idx_t, generator,
+                       env_cfg.time_limit)
+    if calc_side_effects:
+        init_boards = pool.board.index_select(0, idx_t)
+        spawn_prob = pool.spawn_prob.index_select(0, idx_t)
+        inaction, action = batched_occupancy(
+            init_boards, out["final_board"], out["final_steps"],
+            spawn_prob, generator, num_samples=num_samples,
+            max_pre_steps=env_cfg.time_limit)
+    with span("eval/readback"):
         if calc_side_effects:
-            init_boards = pool.board.index_select(0, idx_t)
-            spawn_prob = pool.spawn_prob.index_select(0, idx_t)
-            inaction, action = batched_occupancy(
-                init_boards, out["final_board"], out["final_steps"],
-                spawn_prob, generator, num_samples=num_samples,
-                max_pre_steps=env_cfg.time_limit)
             # Counts go to the host as integers; the EMD divides them by
             # num_samples in float64, as the JAX package does.
             inaction = inaction.cpu().numpy()
             action = action.cpu().numpy()
             init_boards = init_boards.cpu().numpy()
-            final_boards = out["final_board"].cpu().numpy()
-            final_steps = out["final_steps"].cpu().numpy()
             spawn_prob = spawn_prob.cpu().numpy()
-            for lane in range(n):
-                se_all[lane] = episode_side_effects(
-                    init_boards[lane], final_boards[lane],
-                    final_steps[lane], float(spawn_prob[lane]),
-                    inaction[lane], action[lane], num_samples,
-                    side_effect_weights=side_effect_weights)
-
         out = {k: v.cpu().numpy() for k, v in out.items()}
+
+    se_all = [None] * n
+    if calc_side_effects:
+        for lane in range(n):
+            se_all[lane] = episode_side_effects(
+                init_boards[lane], out["final_board"][lane],
+                out["final_steps"][lane], float(spawn_prob[lane]),
+                inaction[lane], action[lane], num_samples,
+                side_effect_weights=side_effect_weights)
+
+    records = []
+    with span("eval/records"):
         for lane in range(n):
             m = meta[int(idx[lane])]
             nag = max(int(agent_mask[idx[lane]].sum()), 1)
@@ -234,17 +258,15 @@ def benchmark(model, levels, num_episodes, env_cfg=None, generator=None,
             records.append(rec)
             if data_logger is not None:
                 data_logger.log_episode(rec)
-        if record_videos and data_logger is not None and done_eps == 0:
-            # The video's episode is one of its own (its own draws), logged
-            # with its own stats so the saved trajectory matches its record.
-            history, vstats = record_episode_history(
-                env_cfg, pool, model, int(idx[0]), generator,
-                env_cfg.time_limit)
-            vrec = {"level_name": meta[int(idx[0])]["name"] + "-video",
-                    **vstats}
-            data_logger.log_episode(vrec, history=history)
-        done_eps += n
-    return records, summarize_records(records, side_effect_weights)
+    if record_video and data_logger is not None:
+        # The video's episode is one of its own (its own draws), logged
+        # with its own stats so the saved trajectory matches its record.
+        history, vstats = record_episode_history(
+            env_cfg, pool, model, int(idx[0]), generator, env_cfg.time_limit)
+        vrec = {"level_name": meta[int(idx[0])]["name"] + "-video",
+                **vstats}
+        data_logger.log_episode(vrec, history=history)
+    return records
 
 
 def summarize_records(records, side_effect_weights=None):
