@@ -17,10 +17,10 @@ Port of ``safelife_tpu/side_effects.py:31-257``: ``earth_mover_distance``,
   launch a step on CUDA);
 * compare the distributions of each cell type by the earth mover's
   distance under a wrapped-manhattan metric, tanh-capped at scale 5, with
-  a unit extra-mass penalty. The EMD is host float64: scipy's HiGHS LP
-  solves partial optimal transport exactly up to ``EXACT_EMD_MAX_CELLS``
-  changed cells a side, a Sinkhorn plan rounded onto the transport polytope
-  above;
+  a unit extra-mass penalty. The EMD is host float64: a network simplex
+  in C++ (``native/emd.cpp``) solves partial optimal transport exactly up
+  to ``EXACT_EMD_MAX_CELLS`` changed cells a side, a Sinkhorn plan rounded
+  onto the transport polytope above;
 * frozen cell types that can be moved or destroyed are compared on their
   exact positions.
 
@@ -29,9 +29,12 @@ The occupancy's seed words are drawn at once from a ``torch.Generator``
 samples than JAX's; boards without spawners give the same counts.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
+from . import native
 from .core import advance, cells as C
 from .env.env import seed_words
 from .render.text import cell_name, name_to_cell
@@ -69,9 +72,9 @@ def earth_mover_distance(a, b, metric="manhattan", wrap_x=True, wrap_y=True,
 
 
 #: Above this many changed cells a side, ``emd_hat`` switches from the
-#: exact LP to the Sinkhorn approximation (within 2% of it, and an upper
-#: bound): the LP's time grows steeply with the changed cells, and spawn
-#: tasks can change most of a board.
+#: exact solver to the Sinkhorn approximation (within 2% of it, and an upper
+#: bound), as the JAX package does: there the exact LP's time grows steeply
+#: with the changed cells, and spawn tasks can change most of a board.
 EXACT_EMD_MAX_CELLS = 350
 
 
@@ -80,14 +83,11 @@ def emd_hat(a, b, dist, extra_mass_penalty=1.0):
 
     min over flows F >= 0 with row sums <= a, col sums <= b and total flow
     min(Σa, Σb) of Σ F·dist, plus ``extra_mass_penalty * |Σa - Σb|``.
-    Solved exactly as a sparse LP (HiGHS) up to
+    Solved exactly by :func:`exact_transport_cost` up to
     :data:`EXACT_EMD_MAX_CELLS` a side; larger instances take a Sinkhorn
     plan rounded onto the feasible set, a true upper bound within ~2% of
     the exact optimum.
     """
-    from scipy import sparse
-    from scipy.optimize import linprog
-
     a = np.asarray(a, float).ravel()
     b = np.asarray(b, float).ravel()
     n, m = len(a), len(b)
@@ -99,21 +99,37 @@ def emd_hat(a, b, dist, extra_mass_penalty=1.0):
         return penalty
 
     if max(n, m) > EXACT_EMD_MAX_CELLS:
-        return _sinkhorn_emd_hat(a, b, np.asarray(dist, float)) + penalty
+        with span("side_effects/emd_sinkhorn"):
+            return _sinkhorn_emd_hat(a, b, np.asarray(dist, float)) + penalty
+    with span("side_effects/emd_exact"):
+        return exact_transport_cost(a, b, dist) + penalty
 
-    cost = np.asarray(dist, float).reshape(n * m)
-    # Row sums: F_ij summed over j <= a_i.
-    rows = sparse.kron(sparse.eye(n), np.ones((1, m)), format="csr")
-    # Column sums: F_ij summed over i <= b_j.
-    cols = sparse.kron(np.ones((1, n)), sparse.eye(m), format="csr")
-    a_ub = sparse.vstack([rows, cols], format="csr")
-    b_ub = np.concatenate([a, b])
-    a_eq = sparse.csr_matrix(np.ones((1, n * m)))
-    res = linprog(cost, A_ub=a_ub, b_ub=b_ub, A_eq=a_eq, b_eq=[total],
-                  bounds=(0, None), method="highs")
-    if not res.success:
-        raise RuntimeError("EMD LP failed: %s" % res.message)
-    return float(res.fun) + penalty
+
+#: ``sl_emd_hat``'s statuses other than 0 (``native/emd.cpp``).
+_EMD_STATUS = {1: "a mass or a cost is negative or not finite",
+               2: "a cycle has no blocking arc",
+               3: "the network simplex did not converge (cycling)",
+               4: "mass is left on an artificial arc",
+               5: "out of memory"}
+
+
+def exact_transport_cost(a, b, dist):
+    """The least cost of moving min(Σa, Σb) from masses ``a`` [n] to
+    masses ``b`` [m] under costs ``dist`` [n, m], float64: the network
+    simplex of ``native/emd.cpp``, which ends only at a basis with no
+    reduced cost below -1e-12 max(dist). Raises ``RuntimeError`` when the
+    solver cannot be built or cannot certify its optimum."""
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    dist = np.ascontiguousarray(dist, np.float64).reshape(len(a), len(b))
+    cost = ctypes.c_double()
+    status = native.load("emd").sl_emd_hat(
+        len(a), len(b), a.ctypes.data, b.ctypes.data, dist.ctypes.data,
+        ctypes.byref(cost))
+    if status:
+        raise RuntimeError("exact EMD failed: %s"
+                           % _EMD_STATUS.get(status, status))
+    return cost.value
 
 
 def _sinkhorn_emd_hat(a, b, dist, eps=0.01, max_iters=500, tol=1e-6):

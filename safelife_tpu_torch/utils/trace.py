@@ -38,6 +38,11 @@ Names take ``/``. The spans, where they are opened
   waits for the device; a batch.
 * ``side_effects/emd``: ``side_effects.py::episode_side_effects``; an
   episode.
+* ``side_effects/emd_exact``: the native network simplex in
+  ``side_effects.py::emd_hat``; a cell type whose distributions differ in
+  at most ``EXACT_EMD_MAX_CELLS`` cells.
+* ``side_effects/emd_sinkhorn``: the Sinkhorn solve in ``emd_hat``; a
+  cell type whose distributions differ in more.
 * ``eval/records``: ``benchmark``'s records and
   ``data_logger.log_episode``; a batch.
 
@@ -53,7 +58,7 @@ SPANS = (
     "env/obs", "ppo/gae", "ppo/update", "ppo/minibatch", "ppo/metrics",
     "rollout/episodes", "eval/benchmark", "eval/batch",
     "side_effects/occupancy", "eval/readback", "side_effects/emd",
-    "eval/records",
+    "side_effects/emd_exact", "side_effects/emd_sinkhorn", "eval/records",
 )
 
 _recording = torch._C._autograd._profiler_enabled

@@ -148,7 +148,7 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     annealer."""
     from safelife_tpu_torch import native
 
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_libs", {})
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(native, "GXX_FLAGS",
                         native.GXX_FLAGS + ("-DSAFELIFE_NO_SUCH", "-x",
@@ -159,6 +159,44 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         TP.wrapped_label(mask)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("name", ["annealer", "emd"])
+def test_native_library_built_at_first_use_and_reused(name, tmp_path,
+                                                       monkeypatch):
+    """Each native library is built by g++ at its first load, named by its
+    source's name and a hash of the source and the flags, and loaded again
+    from that file without a second build."""
+    import hashlib
+
+    from safelife_tpu_torch import native
+
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    builds = []
+    run = subprocess.run
+
+    def recorded(cmd, *args, **kwargs):
+        builds.append(cmd)
+        return run(cmd, *args, **kwargs)
+    monkeypatch.setattr(native.subprocess, "run", recorded)
+
+    h = hashlib.sha256(" ".join(native.GXX_FLAGS).encode())
+    with open(os.path.join(os.path.dirname(native.__file__),
+                           name + ".cpp"), "rb") as f:
+        h.update(f.read())
+    want = "%s-%s.so" % (name, h.hexdigest()[:16])
+    assert native.library_path(name) == str(tmp_path / want)
+
+    lib = native.load(name)
+    assert [c[0] for c in builds] == ["g++"]
+    assert os.listdir(tmp_path) == [want]
+    for fn in native.PROTOTYPES[name]:
+        assert getattr(lib, fn).restype is native.PROTOTYPES[name][fn][0]
+    assert native.load(name) is lib  # cached in the process
+    monkeypatch.setattr(native, "_libs", {})
+    native.load(name)  # a new process: the file, no build
+    assert len(builds) == 1 and os.listdir(tmp_path) == [want]
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -1,5 +1,6 @@
 """The port's side-effect scoring against the JAX package's, on the CPU:
-the cell names, the EMD (HiGHS LP and Sinkhorn) within 1e-9, the occupancy
+the cell names, the EMD within 1e-9 (the port's network simplex against the
+JAX package's HiGHS LP, and both Sinkhorn solves), the occupancy
 counts exactly (``advance_board_nstep``, ``life_occupancy``,
 ``batched_occupancy``), and the scores of ``episode_side_effects`` and
 ``side_effect_score`` within 1e-9.
@@ -8,6 +9,8 @@ Boards without spawners are deterministic, so the two packages' different
 random streams give the same counts. With spawners the port's Philox coins
 (``ops.physics.spawn_coins`` for its seed words) are fed to a loop of JAX's
 ``advance_board_given_spawns``."""
+
+import os
 
 import numpy as np
 import pytest
@@ -91,42 +94,178 @@ def test_cell_name_tables_match_jax():
         assert TT.name_to_cell(name) == JT.name_to_cell(name), name
 
 
-def _pair(n_changed, seed, scale_a=1.0):
+def _pair(n_changed, seed, scale_a=1.0, masses="uniform"):
+    """Two 26x26 distributions that differ in ``n_changed`` cells.
+
+    ``uniform``: a's uniform masses (times ``scale_a``) on half the cells,
+    b's on the others. ``occupancy``: counts over 1000 samples (integers /
+    1000, a's up to 1000 ``scale_a``) on both sides of every changed cell,
+    and 40 cells equal on both. ``binary``: 0/1 masses, as the frozen types
+    give, a's share of the changed cells ``scale_a / (1 + scale_a)``, and 40
+    cells 1 on both sides."""
     rng = np.random.default_rng(seed)
     a = np.zeros((26, 26))
     b = np.zeros((26, 26))
-    idx = rng.choice(676, n_changed, replace=False)
-    a.flat[idx[:n_changed // 2]] = rng.random(n_changed // 2) * scale_a
-    b.flat[idx[n_changed // 2:]] = rng.random(n_changed - n_changed // 2)
+    if masses == "uniform":
+        idx = rng.choice(676, n_changed, replace=False)
+        a.flat[idx[:n_changed // 2]] = rng.random(n_changed // 2) * scale_a
+        b.flat[idx[n_changed // 2:]] = rng.random(n_changed - n_changed // 2)
+        return a, b
+    idx = rng.choice(676, n_changed + 40, replace=False)
+    changed, same = idx[:n_changed], idx[n_changed:]
+    if masses == "occupancy":
+        a.flat[same] = b.flat[same] = rng.integers(1, 1001, 40) / 1000
+        ka = rng.integers(0, int(1000 * scale_a) + 1, n_changed)
+        kb = rng.integers(0, 1001, n_changed)
+        # Changed by at least 5 of 1000: above 1e-3 of the largest change.
+        near = np.abs(ka - kb) < 5
+        kb[near] = np.where(ka[near] < 500, ka[near] + 5, ka[near] - 5)
+        a.flat[changed], b.flat[changed] = ka / 1000, kb / 1000
+    else:
+        a.flat[same] = b.flat[same] = 1.0
+        k = int(round(n_changed * scale_a / (1 + scale_a)))
+        a.flat[changed[:k]] = 1.0
+        b.flat[changed[k:]] = 1.0
     return a, b
 
 
-@pytest.mark.parametrize("n,seed,scale", [
-    (1, 0, 1.0), (40, 1, 1.0), (200, 2, 2.5), (340, 3, 1.0),  # HiGHS LP
+def _case_id(n, seed, scale, masses="uniform"):
+    return "-".join(map(str, (n, seed, scale) + (
+        () if masses == "uniform" else (masses,))))
+
+
+EMD_CASES = [
+    (1, 0, 1.0), (40, 1, 1.0), (200, 2, 2.5), (340, 3, 1.0),  # exact
     (360, 4, 1.0), (500, 5, 0.4), (676, 6, 1.0),              # Sinkhorn
-])
-def test_emd_matches_jax(n, seed, scale):
-    a, b = _pair(n, seed, scale)
-    a[0, 0], b[0, 25] = 0.5, 0.7  # the wrap's asymmetric distances
+    # The exact solver at the sizes evaluation meets, on occupancy-like
+    # and 0/1 masses, with the surplus on either side.
+    (2, 10, 1.0, "occupancy"), (150, 11, 1.0, "occupancy"),
+    (302, 12, 1.0, "occupancy"), (350, 13, 1.0, "occupancy"),
+    (302, 14, 3.0, "occupancy"), (302, 15, 0.3, "occupancy"),
+    (2, 16, 1.0, "binary"), (150, 17, 1.0, "binary"),
+    (302, 18, 1.0, "binary"), (350, 19, 1.0, "binary"),
+    (150, 20, 2.0, "binary"), (150, 21, 0.5, "binary"),
+]
+
+
+@pytest.mark.parametrize("n,seed,scale,masses", [
+    (c + ("uniform",))[:4] for c in EMD_CASES],
+    ids=[_case_id(*c) for c in EMD_CASES])
+def test_emd_matches_jax(n, seed, scale, masses):
+    a, b = _pair(n, seed, scale, masses)
+    if masses == "uniform":
+        a[0, 0], b[0, 25] = 0.5, 0.7  # the wrap's asymmetric distances
     for x, y in ((a, b), (b, a))[:2 if n <= 40 else 1]:
         ref = JSE.earth_mover_distance(x, y)
         got = TSE.earth_mover_distance(x, y)
         assert abs(got - ref) <= EMD_TOL, (got, ref)
-    # The case takes the solver it is listed under.
+    # The case takes the solver it is listed under, at its size.
     assert TSE.EXACT_EMD_MAX_CELLS == JSE.EXACT_EMD_MAX_CELLS == 350
     delta = np.abs(a - b)
     changed = int((delta > 1e-3 * delta.max()).sum())
     assert (changed > TSE.EXACT_EMD_MAX_CELLS) == (n >= 360)
+    if masses != "uniform":
+        assert changed == n
+        assert (a.sum() > b.sum()) == (scale > 1) or scale == 1
 
 
-def test_emd_hat_cases_match_jax():
-    cases = [([1.0], [1.0], [[0.5]], 1.0), ([2.0], [1.0], [[0.2]], 1.0),
-             ([1, 1], [1, 1], [[0.1, 0.9], [0.9, 0.1]], 1.0),
-             ([3, 0.5], [1, 1, 1], np.linspace(0, 1, 6).reshape(2, 3), 2.0),
-             ([], [1.0], np.zeros((0, 1)), 1.0), ([0.0], [0.0], [[1.0]], 1.0)]
-    for a, b, dist, pen in cases:
-        assert abs(TSE.emd_hat(a, b, dist, pen)
-                   - JSE.emd_hat(a, b, dist, pen)) <= EMD_TOL
+def _grid_costs(n, m, seed):
+    """tanh-capped wrapped-manhattan costs from the first n to the first m
+    of max(n, m) cells of a 26x26 board, as ``earth_mover_distance`` makes
+    them (there n = m: a changed cell's cost to itself is 0)."""
+    cells = np.random.default_rng(seed).choice(676, max(n, m),
+                                                replace=False)
+    y, x = np.divmod(cells, 26)
+    dx = np.abs(np.subtract.outer(x[:n], x[:m]))
+    dy = np.abs(np.subtract.outer(y[:n], y[:m]))
+    d = np.minimum(dx, 26 - dx) + np.minimum(dy, 26 - dy)
+    return np.tanh(d / 5.0)
+
+
+def _occupancy(n, seed, top=1000):
+    return np.random.default_rng(seed).integers(0, top + 1, n) / 1000
+
+
+def _binary(n, ones):
+    return (np.arange(n) < ones).astype(float)
+
+
+EMD_HAT_CASES = {
+    "one": lambda: ([1.0], [1.0], [[0.5]], 1.0),
+    "surplus": lambda: ([2.0], [1.0], [[0.2]], 1.0),
+    "two": lambda: ([1, 1], [1, 1], [[0.1, 0.9], [0.9, 0.1]], 1.0),
+    "penalty": lambda: ([3, 0.5], [1, 1, 1],
+                        np.linspace(0, 1, 6).reshape(2, 3), 2.0),
+    "empty": lambda: ([], [1.0], np.zeros((0, 1)), 1.0),
+    "zero": lambda: ([0.0], [0.0], [[1.0]], 1.0),
+    # Every cost equal: every plan is optimal (degenerate).
+    "equal-costs-occupancy-150": lambda: (
+        _occupancy(150, 1), _occupancy(150, 2), np.full((150, 150), 0.5),
+        1.0),
+    "equal-costs-binary-302": lambda: (
+        _binary(302, 151), _binary(302, 140), np.full((302, 302), 0.7), 1.0),
+    "zero-row-occupancy-150": lambda: (
+        np.where(np.arange(150) == 7, 0.0, _occupancy(150, 3)),
+        _occupancy(150, 4), _grid_costs(150, 150, 5), 1.0),
+    "surplus-a-40x25": lambda: (
+        _occupancy(40, 6, 3000), _occupancy(25, 7), _grid_costs(40, 25, 8),
+        1.0),
+    "surplus-b-25x40": lambda: (
+        _occupancy(25, 9), _occupancy(40, 10, 3000), _grid_costs(25, 40, 11),
+        1.0),
+    "binary-350": lambda: (
+        _binary(350, 200), _binary(350, 200)[::-1], _grid_costs(350, 350, 12),
+        1.0),
+    "occupancy-350": lambda: (
+        _occupancy(350, 13), _occupancy(350, 14), _grid_costs(350, 350, 15),
+        1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMD_HAT_CASES))
+def test_emd_hat_cases_match_jax(case):
+    a, b, dist, pen = EMD_HAT_CASES[case]()
+    assert abs(TSE.emd_hat(a, b, dist, pen)
+               - JSE.emd_hat(a, b, dist, pen)) <= EMD_TOL
+
+
+def test_exact_emd_runs_no_lp(monkeypatch):
+    """The exact branch is the native solver: with scipy's LP refused, the
+    port still gives the JAX package's HiGHS optimum."""
+    import scipy.optimize
+
+    a, b, dist, pen = EMD_HAT_CASES["occupancy-350"]()
+    ref = JSE.emd_hat(a, b, dist, pen)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("linprog called")
+    monkeypatch.setattr(scipy.optimize, "linprog", refuse)
+    assert abs(TSE.emd_hat(a, b, dist, pen) - ref) <= EMD_TOL
+    # The solver's own answer, without the penalty.
+    assert abs(TSE.exact_transport_cost(a, b, dist)
+               + abs(a.sum() - b.sum()) - ref) <= EMD_TOL
+
+
+def test_exact_emd_refuses_bad_input():
+    with pytest.raises(RuntimeError, match="negative or not finite"):
+        TSE.exact_transport_cost([1.0, -1.0], [1.0], [[0.0], [1.0]])
+    with pytest.raises(RuntimeError, match="negative or not finite"):
+        TSE.exact_transport_cost([1.0], [1.0], [[np.nan]])
+
+
+def test_exact_emd_build_failure_raises(tmp_path, monkeypatch):
+    """A failed g++ build of the solver raises; nothing falls back to an LP
+    solver."""
+    from safelife_tpu_torch import native
+
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "GXX_FLAGS",
+                        native.GXX_FLAGS + ("-x", "no-such-language"))
+    a, b = _pair(40, 1)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        TSE.earth_mover_distance(a, b)
+    assert os.listdir(tmp_path) == []
 
 
 def test_weighted_total_matches_jax():

@@ -1,12 +1,14 @@
 """The port's layer spans (``utils/trace.py``) on the CPU, at tiny sizes:
 with no profiler running no ``record_function`` range is opened on the
 training, rollout and evaluation paths; under ``torch.profiler`` every span
-appears under its documented parent, as often as documented; and the
-outputs are bit for bit the same with the profiler on and off."""
+appears under its documented parent, as often as documented (the EMD's
+two solvers on a side-effect scoring of their own); and the outputs are bit
+for bit the same with the profiler on and off."""
 
 import copy
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,7 +45,11 @@ EVAL_PARENTS = {
     "rollout/episodes": "eval/batch", "policy/sample": "rollout/episodes",
     "env/core": "rollout/episodes", "env/obs": "rollout/episodes",
     "side_effects/occupancy": "eval/batch", "eval/readback": "eval/batch",
-    "side_effects/emd": "eval/batch", "eval/records": "eval/batch"}
+    "side_effects/emd": "eval/batch",
+    "side_effects/emd_exact": "side_effects/emd", "eval/records": "eval/batch"}
+SIDE_EFFECTS_PARENTS = {
+    "side_effects/emd": None, "side_effects/emd_exact": "side_effects/emd",
+    "side_effects/emd_sinkhorn": "side_effects/emd"}
 
 TRAIN_COUNTS = {
     "ppo/iteration": 1, "ppo/rollout": 1, "policy/sample": STEPS,
@@ -59,7 +65,11 @@ EVAL_COUNTS = {
     "policy/sample": BATCHES * EVAL_STEPS, "env/core": BATCHES * EVAL_STEPS,
     "env/obs": BATCHES * (EVAL_STEPS + 1),
     "side_effects/occupancy": BATCHES, "eval/readback": BATCHES,
-    "side_effects/emd": EPISODES, "eval/records": BATCHES}
+    "side_effects/emd": EPISODES, "eval/records": BATCHES,
+    # Each of the three episodes changes one cell type's distribution.
+    "side_effects/emd_exact": EPISODES}
+SIDE_EFFECTS_COUNTS = {"side_effects/emd": 1, "side_effects/emd_exact": 1,
+                       "side_effects/emd_sinkhorn": 1}
 
 
 def _policy():
@@ -104,10 +114,29 @@ def _benchmark():
         num_samples=SAMPLES, lanes=EVAL_LANES, device="cpu")
 
 
+def _side_effects():
+    """One episode's scoring in which one colour of life differs in 360
+    cells (above ``EXACT_EMD_MAX_CELLS``: the Sinkhorn solve) and another in
+    2 (the exact solve)."""
+    rng = np.random.default_rng(9)
+    cells = rng.choice(26 * 26, 362, replace=False)
+    inaction = np.zeros((26 * 26, 8), np.int64)
+    action = np.zeros((26 * 26, 8), np.int64)
+    inaction[cells[:180], 0] = rng.integers(1, 1001, 180)
+    action[cells[180:360], 0] = rng.integers(1, 1001, 180)
+    inaction[cells[360], 1] = action[cells[361], 1] = 500
+    board = np.zeros((26, 26), np.int32)
+    return lambda: TR.episode_side_effects(
+        board, board, 0, 0.3, inaction.reshape(26, 26, 8),
+        action.reshape(26, 26, 8), 1000)
+
+
 #: Each path's set-up, which returns its call, the parents and the counts.
 PATHS = {"train_iteration": (_train, TRAIN_PARENTS, TRAIN_COUNTS),
          "run_episodes": (_rollout, ROLLOUT_PARENTS, ROLLOUT_COUNTS),
-         "benchmark": (_benchmark, EVAL_PARENTS, EVAL_COUNTS)}
+         "benchmark": (_benchmark, EVAL_PARENTS, EVAL_COUNTS),
+         "episode_side_effects": (_side_effects, SIDE_EFFECTS_PARENTS,
+                                  SIDE_EFFECTS_COUNTS)}
 
 
 def _spans(prof):
@@ -136,7 +165,7 @@ def test_span_is_a_shared_no_op_without_a_profiler():
 def test_span_names_are_distinct_and_slashed():
     assert len(set(trace.SPANS)) == len(trace.SPANS)
     assert all("/" in s and "." not in s for s in trace.SPANS)
-    covered = set(TRAIN_COUNTS) | set(ROLLOUT_COUNTS) | set(EVAL_COUNTS)
+    covered = set().union(*(counts for _, _, counts in PATHS.values()))
     assert covered == set(trace.SPANS)
 
 
