@@ -1,6 +1,7 @@
-"""On the card: the controls of the training and rollout cells (the
-program's policy in TF32) read not correct at a size a test run holds,
-and a sound run reads correct.
+"""On the card: the controls of the cells whose sizes file has ``card``
+sizes (the program's policy in TF32 in the training and rollout cells, the
+reference's EMD in float32 in the evaluation's) read not correct at a size
+a test run holds, and a sound run reads correct.
 
     python -m pytest perfbench/tests -q -m card
 """
@@ -9,31 +10,29 @@ import pytest
 import torch
 
 from perfbench import harness
+from perfbench.tests.sizes import card
 
 SEED = 2 ** 31 + 7919
-SMALL = {
-    "ppo-append-spawn.train-64": {"lanes": 64},
-    "ppo-prune-spawn.rollout-16384": {"lanes": 512, "steps": 60,
-                                     "profile_steps": 10},
-}
+CELLS = sorted(w["name"] for w in harness.manifest()["workloads"]
+               if card(w["name"]) is not None)
 
 
 @pytest.fixture
-def card():
+def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", sorted(SMALL))
-def test_control_reads_not_correct(card, cell):
-    result, checks = harness.run(cell, SEED, 0.5, sizes=SMALL[cell],
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_reads_not_correct(device, cell):
+    result, checks = harness.run(cell, SEED, 0.5, sizes=card(cell),
                                  control=True)
     assert not result["correct"], checks
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", sorted(SMALL))
-def test_sound_run_reads_correct(card, cell):
-    result, checks = harness.run(cell, SEED, 0.5, sizes=SMALL[cell])
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_run_reads_correct(device, cell):
+    result, checks = harness.run(cell, SEED, 0.5, sizes=card(cell))
     assert result["correct"], checks

@@ -60,9 +60,9 @@ def test_a_run_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "from perfbench import harness\n"
-        "from perfbench.tests.sizes import SIZES, SEED\n"
+        "from perfbench.tests.sizes import SEED, tiny\n"
         "c = 'ppo-prune-spawn.rollout-16384'\n"
-        "r, _ = harness.run(c, SEED, 0.01, device='cpu', sizes=SIZES[c])\n"
+        "r, _ = harness.run(c, SEED, 0.01, device='cpu', sizes=tiny(c))\n"
         "assert r['correct']\n"
         "print(harness.forbidden_modules())\n" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -80,7 +80,7 @@ def test_no_program_no_result(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp)
     with pytest.raises((RuntimeError, ImportError)):
-        harness.run("ppo-append-spawn.train-64", 1, 0.01, device="cpu",
+        harness.run("ppo-append-spawn.train-4096", 1, 0.01, device="cpu",
                     root=tmp)
 
 
@@ -90,6 +90,6 @@ def test_no_card_no_result(capsys, monkeypatch):
     from perfbench import run
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert run.main(["--workload", "ppo-append-spawn.train-64", "--seed",
+    assert run.main(["--workload", "ppo-append-spawn.train-4096", "--seed",
                      "1", "--seconds", "1", "--trace", "0"]) != 0
     assert capsys.readouterr().out == ""

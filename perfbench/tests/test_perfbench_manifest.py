@@ -8,6 +8,7 @@ import re
 import pytest
 
 from perfbench import harness
+from perfbench.tests import sizes
 
 ROOT = harness.ROOT
 B = harness.manifest()
@@ -110,6 +111,22 @@ def test_cell_files_and_metrics(cell):
     assert layer
     for m in layer:
         assert m["moves"] in [x["name"] for x in e2e]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_tiny_sizes(cell):
+    """The tests find a cell's sizes by its name: its file overrides only
+    the workload's parameters, the configuration's (``config``) and, for
+    the card's tests, both again (``card``); its driver plants faults."""
+    _, _, wl, cfg = harness.cell(cell)
+    assert os.path.exists(sizes.path(cell)), "no %s" % sizes.path(cell)
+    tiny = harness.load_json(sizes.path(cell))
+    card = tiny.pop("card", {})
+    for s in (tiny, card):
+        assert set(s) <= set(wl) | {"config"}, sorted(s)
+        assert set(s.get("config", {})) <= set(cfg)
+    assert getattr(harness.driver(wl["driver"]), "FAULTS", None), \
+        "driver %s plants no faults" % wl["driver"]
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

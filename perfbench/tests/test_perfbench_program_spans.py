@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from perfbench import harness, program_spans as S
+from perfbench.tests.sizes import card
 
 TRAIN = ("rollout_wait_ms.train", "update_wait_ms.train",
          "rollout_launches_per_step.train",
@@ -199,18 +200,17 @@ def test_traced_runs_read_every_span_metric():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     seed = 2 ** 31 + 7919
-    result, checks = harness.run("ppo-append-spawn.train-64", seed, 0.5,
-                                 trace=True, sizes={"lanes": 64})
+    cell = "ppo-append-spawn.train-4096"
+    result, checks = harness.run(cell, seed, 0.5, trace=True,
+                                 sizes=card(cell))
     assert result["correct"], checks
     m = {k: v["value"] for k, v in result["metrics"].items()}
     assert set(TRAIN) <= set(m), sorted(m)
     idle_ms = 1e3 * (result["device"]["window_s"]
                      - result["device"]["busy_s"])
     assert m["rollout_wait_ms.train"] + m["update_wait_ms.train"] <= idle_ms
-    result, checks = harness.run(
-        "ppo-prune-spawn.eval-25", seed, 0.5, trace=True,
-        sizes={"episodes": 3, "config": {"time_limit": 50,
-                                         "side_effects": {
-                                             "num_samples": 20}}})
+    cell = "ppo-prune-spawn.eval-25"
+    result, checks = harness.run(cell, seed, 0.5, trace=True,
+                                 sizes=card(cell))
     assert result["correct"], checks
     assert result["metrics"]["rollout_wait_ms.eval"]["value"] > 0
