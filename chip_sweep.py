@@ -2,11 +2,11 @@
 call, on one CUDA card.
 
     python3 chip_sweep.py [physics] [views] [host] [large] [learner]
-                          [learner-4096] [procgen] [ranks] [bench]
-                          [parent=DIR]
+                          [learner-4096] [procgen] [ranks] [ranks-time]
+                          [convs] [bench] [parent=DIR]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-part named runs all nine; ``parent=DIR``, a checkout of another commit,
+part named runs all eleven; ``parent=DIR``, a checkout of another commit,
 e.g. the one before, ``git archive``'d under ``runs/``, adds its K3 to
 ``large``). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
@@ -72,6 +72,21 @@ prune-dynamic boards:
   fault planted in the rank processes at run time: PPO's sample index
   shifted one lane, the rank's own weight in the sharded loss in place of
   the global one, DQN's sample index off by one, DQN's loss doubled.
+* ``ranks-time``: two ``gloo`` ranks on the card, each running
+  ``RANK_ITERATIONS`` PPO iterations of ``cs.P11_LANES`` global lanes after
+  a warm-up one: each iteration's ms and ``models/nets.py::conv_searches``
+  after it (None where the checkout has no such counter).
+* ``convs``: each convolution of the policy trunk (25x25 views, 15
+  channels) at each of ``CONV_SAMPLES``, in strict float32: its forward,
+  input gradient and weight gradient (``aten.convolution_backward`` with
+  the one output asked), under cuDNN's heuristic pick and under its
+  measured search, each pick in a process of its own (``convs=heuristic``,
+  ``convs=measured``, the latter twice, as the search's picks at small
+  widths change from one process to the next): cuDNN keeps the first plan
+  a process runs at a shape, whichever way it was chosen. A line each:
+  the device kernels of a call on the profiler's clock, their ms, the
+  share of 67 TFLOP/s float32 and the first call's host seconds (the
+  search, where it ran).
 * ``bench``: ``python -m safelife_tpu_torch bench`` three times at its
   headline (4096 lanes, packed and channels views), each run its own
   process with its launches checked as ``chip_smoke.py``'s phase 12 does,
@@ -81,6 +96,7 @@ prune-dynamic boards:
 
 import contextlib
 import json
+import subprocess
 import sys
 import time
 
@@ -700,6 +716,61 @@ def rank_readings(dev, card):
                  cs.P11_DQN_MAX_ABS, card), flush=True)
 
 
+RANK_ITERATIONS = 10
+
+
+def timed_iterations(dev, levels, tree, lanes):
+    """One rank's part of ``ranks-time`` (module docstring), in place of
+    ``cs.p11_ppo``."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.models import nets as N
+    from safelife_tpu_torch.training import ppo as P
+
+    searches = getattr(N, "conv_searches", lambda: None)
+    pool = pack_levels(levels, device=dev)
+    cfg = E.EnvConfig(view_shape=cs.VIEW, output_channels=None)
+    wcfg = W.WrapperConfig(se_baseline="inaction")
+    pcfg = P.PPOConfig()
+    ps = P.init_ppo_state(pcfg, cs.policy(tree, dev), device=dev)
+    ws, obs = W.reset(cfg, wcfg, pool, cs.P11_LANES, device=dev, lanes=lanes)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"ms": [], "searches": [searches()]}
+    for _ in range(RANK_ITERATIONS + 1):
+        ms, (ps, ws, obs, _) = cs.event_ms(lambda: P.train_iteration(
+            cfg, wcfg, pcfg, pool, ps, ws, obs, gen, device=dev,
+            lanes=lanes))
+        out["ms"].append(round(ms, 1))
+        out["searches"].append(searches())
+    return out
+
+
+def timed_rank(*args):
+    cs.p11_ppo = timed_iterations
+    return cs.p11_rank(*args)
+
+
+def rank_timings(dev, card):
+    """``ranks-time`` (module docstring)."""
+    import numpy as np
+
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+
+    tree = cs.random_policy_tree(np.random.default_rng(0),
+                                 len(TRAINING_CHANNELS), cs.VIEW)
+    real_rank = cs.p11_rank
+    cs.p11_rank = timed_rank
+    try:
+        ranks = cs.run_p11_ranks(cs.P11_RANKS, "gloo",
+                                 [dev.index or 0] * cs.P11_RANKS, ("ppo",),
+                                 tree)
+    finally:
+        cs.p11_rank = real_rank
+    for r, x in enumerate(ranks):
+        print("ranks-time rank %d: %s  [%s]" % (r, json.dumps(x["ppo"]), card),
+              flush=True)
+
+
 def anneal_iteration_cost(dev, card, blocks=10):
     """The device annealer's iteration at 8, 64 and 256 chains: a 16x16
     writable square in a 26x26 board and a fill floor of 2, so that no
@@ -779,6 +850,84 @@ def bench_rates(dev, card, runs=BENCH_RUNS):
                               mode, cs.BENCH_BATCH), "step", cs.BENCH_SCAN)
 
 
+CONV_SAMPLES = (16384, 4096, 1024, 512, 256, 128, 96, 64, 25)
+CONV_CALLS = 20
+CONV_PICKS = ("heuristic", "measured", "measured")
+FLOAT32_PEAK = 67e12
+
+
+def device_kernels(prof):
+    """{kernel: device us} of the profiler's device activities."""
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            out[e.key] = out.get(e.key, 0.0) + e.device_time_total
+    return out
+
+
+def conv_table(dev, card, pick):
+    """``convs=<pick>``: each trunk convolution's three passes under one of
+    ``CONV_PICKS`` (module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    from safelife_tpu_torch.models import nets as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def flags():
+        return torch.backends.cudnn.flags(
+            enabled=True, benchmark=pick == "measured", allow_tf32=False)
+
+    torch.manual_seed(0)
+    net = N.SafeLifePolicyNetwork(unpack_channels=N.TRAINING_CHANNELS,
+                                  device=dev)
+    cs.log("convs=%s  [%s]" % (pick, card))
+    for n in CONV_SAMPLES:
+        x = (torch.rand((n, len(N.TRAINING_CHANNELS)) + cs.VIEW, device=dev)
+             < 0.5).float()
+        for name in ("conv0", "conv1", "conv2"):
+            conv = getattr(net.cnn, name)
+            w, stride = conv.weight.detach(), list(conv.stride)
+
+            def backward(mask):
+                return torch.ops.aten.convolution_backward(
+                    gy, x, w, None, stride, [0, 0], [1, 1], False, [0, 0],
+                    1, mask)
+
+            passes = {
+                "fprop": lambda: torch.nn.functional.conv2d(
+                    x, w, None, stride),
+                "dgrad": lambda: backward([True, False, False])[0],
+                "wgrad": lambda: backward([False, True, False])[1]}
+            for op, fn in passes.items():
+                with torch.no_grad(), flags():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn()
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+                    if op == "fprop":
+                        y, gy = out, torch.randn_like(out)
+                        flops = 2 * y[0].numel() * w[0].numel() * n
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as p:
+                        for _ in range(CONV_CALLS):
+                            fn()
+                        torch.cuda.synchronize()
+                kernels = device_kernels(p)
+                ms = sum(kernels.values()) / CONV_CALLS / 1e3
+                cs.log("conv %s" % json.dumps({
+                    "samples": n, "conv": name, "pass": op, "pick": pick,
+                    "ms": round(ms, 4),
+                    "peak_pct": round(100 * flops / (ms / 1e3)
+                                      / FLOAT32_PEAK, 2),
+                    "first_s": round(first_s, 4),
+                    "kernels": {k[:72]: round(v / CONV_CALLS / 1e3, 4)
+                                for k, v in sorted(kernels.items(),
+                                                   key=lambda kv: -kv[1])}}))
+            x = torch.relu(y)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_sweep: no CUDA device\n")
@@ -786,9 +935,11 @@ def main():
     args = sys.argv[1:]
     parent = next((x.split("=", 1)[1] for x in args
                    if x.startswith("parent=")), None)
-    parts = [x for x in args if not x.startswith("parent=")] or [
+    pick = next((x.split("=", 1)[1] for x in args
+                 if x.startswith("convs=")), None)
+    parts = [x for x in args if "=" not in x] or ([] if pick else [
         "physics", "views", "host", "large", "learner", "learner-4096",
-        "procgen", "ranks", "bench"]
+        "procgen", "ranks", "ranks-time", "convs", "bench"])
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -819,6 +970,14 @@ def main():
         anneal_iteration_cost(dev, card)
     if "ranks" in parts:
         rank_readings(dev, card)
+    if "ranks-time" in parts:
+        rank_timings(dev, card)
+    if pick is not None:
+        conv_table(dev, card, pick)
+    if "convs" in parts:
+        for p in CONV_PICKS:
+            subprocess.run([sys.executable, __file__, "convs=" + p],
+                           check=True)
     if "bench" in parts:
         bench_rates(dev, card)
     return 0

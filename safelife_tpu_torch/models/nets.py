@@ -25,6 +25,21 @@ bfloat16 autocast around the convolutions and dense layers, with the
 outputs cast back to float32 before the softmax and the dueling sum. The
 modes mean the same on the CPU, where TF32 does not exist and the flags
 change nothing.
+
+On CUDA a network call, forward, ``backward()`` and optimizer step, over
+at least :data:`SEARCH_MIN_WIDTH` samples runs under cuDNN's measured
+algorithm search (``cudnn.benchmark``): the first call at a convolution
+shape times cuDNN's candidate algorithms for it and the process keeps the
+fastest, so a 4,096-sample forward and a 16,384-sample weight gradient
+each run their own pick. Narrower calls, and calls whose width changes
+from one to the next (a rank's share of a sharded minibatch), keep
+cuDNN's heuristic pick, as a search there costs more than it finds. Under
+strict float32 the candidates are full-float32 engines only, so a pick
+changes the order of the sums and nothing else. cuDNN keeps the first plan
+the process runs at a shape, searched or not, so a convolution run outside
+:func:`learner_precision` first would pin the heuristic's pick there.
+:func:`conv_searches` counts the trunk calls that search at a new (device,
+input shape, mode, grad mode).
 """
 
 import contextlib
@@ -77,24 +92,60 @@ def precision_mode(precision):
     return PRECISIONS[precision]
 
 
+#: The narrowest call, in samples, that runs cuDNN's measured search (see
+#: the module docstring). On an H100 (``chip_sweep.py convs``) the
+#: search's forward picks ran 9-62% slower than the heuristic's at 25 to
+#: 256 samples, and changed from one process to the next; from 512 samples
+#: on, the forward and both gradients of the three convolutions ran 22-48%
+#: faster.
+SEARCH_MIN_WIDTH = 512
+
+#: The (device type, input shape, mode, grad mode) of every trunk call so
+#: far that ran under the search: a call at a new key is where cuDNN
+#: searches (module docstring).
+_TRUNK_KEYS = set()
+
+#: Whether each enclosing :func:`learner_precision` searches, innermost
+#: last: a context nested in one that does not search does not either.
+_SEARCHING = []
+
+
+def conv_searches():
+    """Trunk calls under the search at a key the process had not seen (see
+    :data:`_TRUNK_KEYS`): on CUDA, the calls whose convolutions cuDNN
+    searched for, the backward of a call with grad enabled included."""
+    return len(_TRUNK_KEYS)
+
+
 @contextlib.contextmanager
-def learner_precision(precision, device_type="cuda"):
+def learner_precision(precision, device_type="cuda", width=None):
     """The network math of ``precision`` on ``device_type``: TF32 off for
     cuBLAS and cuDNN (which allows it for float32 convolutions by
     default), except under "tensorfloat32", which turns it on for both;
-    "bfloat16" adds ``torch.autocast`` to bfloat16. The flags are
+    "bfloat16" adds ``torch.autocast`` to bfloat16. ``width`` is the
+    samples of the convolutions run inside, or None where it changes from
+    call to call: at :data:`SEARCH_MIN_WIDTH` or more cuDNN picks each
+    convolution's algorithm by its measured search, once a shape for the
+    process, among the engines the mode allows, unless an enclosing
+    context does not search; else by its heuristic. The flags are
     process-wide and read when an operation runs, so a learner runs its
-    loss forward, ``backward()`` and optimizer step inside this context."""
+    loss forward, ``backward()`` and optimizer step inside this context;
+    every flag is restored on exit."""
     mode = precision_mode(precision)
     tf32 = mode == "tensorfloat32"
+    search = (width is not None and width >= SEARCH_MIN_WIDTH
+              and all(_SEARCHING))
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
+    _SEARCHING.append(search)
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32), \
+        with torch.backends.cudnn.flags(enabled=True, benchmark=search,
+                                        allow_tf32=tf32), \
                 torch.autocast(device_type, dtype=torch.bfloat16,
                                enabled=mode == "bfloat16"):
             yield
     finally:
+        _SEARCHING.pop()
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
@@ -176,7 +227,12 @@ class _PackedViewNetwork(nn.Module):
     def trunk(self, obs):
         """Trunk features [N, features]; call inside
         :func:`learner_precision` of ``self.precision``."""
-        return self.cnn(obs.to(torch.float32))
+        obs = obs.to(torch.float32)
+        if torch.backends.cudnn.benchmark:
+            _TRUNK_KEYS.add((obs.device.type, tuple(obs.shape),
+                             PRECISIONS[self.precision],
+                             torch.is_grad_enabled()))
+        return self.cnn(obs)
 
     def unpack(self, obs):
         if self.unpack_channels is not None:
@@ -204,7 +260,8 @@ class SafeLifePolicyNetwork(_PackedViewNetwork):
 
     def forward(self, obs):
         obs = self.unpack(obs)
-        with learner_precision(self.precision, obs.device.type):
+        with learner_precision(self.precision, obs.device.type,
+                               obs.shape[0]):
             x = torch.relu(self.dense(self.trunk(obs)))
             value = self.value(x)[..., 0]
             logits = self.logits(x)
@@ -229,7 +286,8 @@ class SafeLifeQNetwork(_PackedViewNetwork):
 
     def forward(self, obs):
         obs = self.unpack(obs)
-        with learner_precision(self.precision, obs.device.type):
+        with learner_precision(self.precision, obs.device.type,
+                               obs.shape[0]):
             x = self.trunk(obs)
             adv = self.adv(torch.relu(self.adv_hidden(x)))
             val = self.value(torch.relu(self.value_hidden(x)))

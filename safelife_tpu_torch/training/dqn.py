@@ -452,7 +452,8 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None,
     batch = {k: getattr(replay, k).index_select(0, sample_idx)
              for k in ("obs", "action", "reward", "next_obs", "done")}
     warm = size >= cfg.replay_initial
-    with learner_precision(dstate.model.precision, dev.type), \
+    with learner_precision(dstate.model.precision, dev.type,
+                           sample_idx.shape[0]), \
             torch.set_grad_enabled(warm):
         loss, metrics = td_loss(cfg, dstate.model, dstate.target_model, batch)
         if warm:

@@ -271,7 +271,7 @@ def _batch_loss(cfg, model, batch, chunk, shard=None):
     chunk = max(chunk, 1)
     sums = torch.zeros(3, device=batch["advantages"].device)
     with torch.no_grad(), learner_precision(
-            model.precision, batch["advantages"].device.type):
+            model.precision, batch["advantages"].device.type, min(n, chunk)):
         for lo in range(0, n, chunk):
             mb = {k: v[lo:lo + chunk] for k, v in batch.items()}
             terms = _loss_terms(cfg, model, mb["obs"], mb["actions"],
@@ -324,7 +324,11 @@ def train_on_batch(cfg, ppo_state, batch, generator, perms=None,
         local_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
         local_of[shard.index] = torch.arange(shard.index.shape[0],
                                              device=dev)
-    with span("ppo/update"), learner_precision(model.precision, dev.type):
+    # A rank's share of a global minibatch changes width from one to the
+    # next, and each new width would search anew: the heuristic's picks.
+    width = None if shard is not None else min(b - a for a, b in bounds)
+    with span("ppo/update"), learner_precision(model.precision, dev.type,
+                                               width):
         for epoch in range(cfg.epochs_per_batch):
             if perms is None:
                 perm = torch.randperm(n, generator=generator, device=dev)
