@@ -238,20 +238,9 @@ import warnings
 import numpy as np
 import torch
 
-#: Device memory rate of one H100 SXM (data sheet), and its 32-bit integer
-#: rate: add, shift, logic and compare issue at 64 per SM per clock on
-#: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-#: instruction throughput), times 132 SMs at the 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-#: Integer operations a cell of one CA step needs in the separable form
-#: (pack 20, neighbourhood sum and OR 8, rule 27), and an agent's action.
-CA_OPS_PER_CELL = 55
-ACTION_OPS_PER_AGENT = 60
-#: Operations of one view element (wrap, pack), and of one exit of one view
-#: (its projection onto the view).
-VIEW_OPS_PER_ELEMENT = 10
-EXIT_OPS_PER_VIEW = 12
+from perfbench import peaks
+from perfbench.peaks import (ACTION_OPS_PER_AGENT, CA_OPS_PER_CELL,
+                             HBM_BYTES_PER_S, INT32_OPS_PER_S, view_work)
 
 VIEW = (25, 25)
 LANES = 512
@@ -1117,42 +1106,12 @@ def events_ms(fn, n=50):
 
 
 def bound(nbytes, nops):
-    """(bound_ms, bound_by, bytes_ms, ops_ms): the larger of the time to move
-    the bytes and the time to issue the integer operations."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, t_bytes, t_ops
-
-
-def covered_cells(h, w, cy, cx, exit_locs, exit_valid, view):
-    """Board cells that the views and the valid exits of all lanes cover,
-    summed over lanes: what K3 must read of the boards, and as much of the
-    goals."""
-    b = cy.shape[0]
-    vh, vw = view
-    dev = cy.device
-    rows = (cy[..., None] - vh // 2 + torch.arange(vh, device=dev)) % h
-    cols = (cx[..., None] - vw // 2 + torch.arange(vw, device=dev)) % w
-    idx = (rows[..., :, None] * w + cols[..., None, :]).reshape(b, -1)
-    hit = torch.zeros((b, h * w), dtype=torch.int32, device=dev)
-    hit.scatter_(1, idx.long(), 1)
-    hit.scatter_reduce_(1, (exit_locs[..., 0] * w + exit_locs[..., 1]).long(),
-                        exit_valid.to(torch.int32), "amax")
-    return int(hit.sum())
-
-
-def view_work(h, w, cy, cx, exit_locs, exit_valid, view):
-    """(bytes, int32 operations) that K3 must move and do on these inputs:
-    the covered board and goal words read once, the centres, exits and
-    their flags read, each view word written once."""
-    b, a = cy.shape
-    e = exit_locs.shape[1]
-    vh, vw = view
-    nbytes = (2 * covered_cells(h, w, cy, cx, exit_locs, exit_valid, view) * 4
-              + 2 * b * a * 4 + b * e * 9 + b * a * vh * vw * 4)
-    return nbytes, b * a * (vh * vw * VIEW_OPS_PER_ELEMENT
-                            + e * EXIT_OPS_PER_VIEW)
+    """(bound_ms, bound_by, bytes_ms, ops_ms): :func:`perfbench.peaks.bound`
+    in milliseconds, with the time to move the bytes and the time to issue
+    the integer operations beside it."""
+    seconds, by = peaks.bound(nbytes, nops)
+    return (seconds * 1e3, by, nbytes / HBM_BYTES_PER_S * 1e3,
+            nops / INT32_OPS_PER_S * 1e3)
 
 
 def time_kernels(dev, pool, b):
@@ -4011,9 +3970,7 @@ def p11_ppo(dev, levels, tree, lanes):
     traj, _, final = P.rollout(cfg, wcfg, pool, ps.model, ws, obs, gen,
                                pcfg.steps_per_env, lanes=lanes)
     batch = P.flatten_batch(traj, *P.compute_gae(pcfg, traj, final))
-    shard = None if lanes is None else P.sample_shard(
-        pcfg.steps_per_env, pool.num_agents, lanes, dev)
-    _, m0 = P._batch_loss(pcfg, ps.model, batch, 4096, shard)
+    _, m0 = P._batch_loss(pcfg, ps.model, batch, 4096)
     loss0 = float(m0["loss"])
     del traj, batch
     gen.set_state(state)
@@ -4223,9 +4180,11 @@ def run_p11_ranks(world, backend, devices, tasks, tree):
 
 
 def check_helpers_nccl_world_one(dev, levels, tree, card):
-    """Each helper of ``parallel/mesh.py`` on CUDA tensors in an NCCL group
-    of one rank, against the identity it must give there. Returns the
-    milliseconds of each."""
+    """Each collective of ``parallel/mesh.py`` on CUDA tensors in an NCCL
+    group of one rank, against the identity it must give there. At world
+    size 1 the helpers return before they reach ``torch.distributed``, so
+    the check stands the group in for ``training_group`` and the helpers'
+    collective bodies run on NCCL. Returns the milliseconds of each."""
     import torch.distributed as dist
 
     from safelife_tpu_torch.env.state import pack_levels
@@ -4244,6 +4203,8 @@ def check_helpers_nccl_world_one(dev, levels, tree, card):
         ms[name] = 1e3 * (time.perf_counter() - t)
         return out
 
+    real_group = M.training_group
+    M.training_group = lambda: dist.group.WORLD
     try:
         if dist.get_backend() != "nccl":
             raise AssertionError("the group's backend is %s"
@@ -4258,9 +4219,24 @@ def check_helpers_nccl_world_one(dev, levels, tree, card):
         for p, b in zip(net.parameters(), before):
             if not torch.equal(p.grad, b):
                 raise AssertionError("a gradient changed at world size 1")
+        x = torch.randn((4, 1000), generator=g, device=dev,
+                        requires_grad=True)
+        got = timed("all_reduce_sum", lambda: M.all_reduce_sum(x))
+        if got.requires_grad or got.data_ptr() == x.data_ptr() \
+                or not torch.equal(got, x.detach()):
+            raise AssertionError("all_reduce_sum is not a detached sum")
+        got = timed("all_gather", lambda: M.all_gather(x.detach()))
+        if len(got) != 1 or not torch.equal(got[0], x.detach()):
+            raise AssertionError("all_gather changed its input")
+        got = timed("all_gather_object",
+                    lambda: M.all_gather_object({"slot": [1, 2]}))
+        if got != [{"slot": [1, 2]}]:
+            raise AssertionError("all_gather_object changed its input")
         pool = pack_levels(levels[:16], device=dev)
         got = timed("allgather_level_pool",
                     lambda: M.allgather_level_pool(pool))
+        if got is pool:
+            raise AssertionError("allgather_level_pool ran no gather")
         for f in ("board", "goals", "table_flat", "reset_boards",
                   "spawn_prob", "exit_locs_valid"):
             if not torch.equal(getattr(got, f), getattr(pool, f)):
@@ -4273,20 +4249,17 @@ def check_helpers_nccl_world_one(dev, levels, tree, card):
               "episode_reward": torch.randn((20, 64, 1), generator=g,
                                             device=dev)}
         got = timed("gather_episodes", lambda: M.gather_episodes(ep, 1))
-        tree_t = {"a": torch.randn((4096,), generator=g, device=dev)}
-        ref = tree_t["a"].clone()
-        timed("broadcast_tree", lambda: M.broadcast_tree(tree_t))
         state = g.get_state()
         timed("sync_generator", lambda: M.sync_generator(g))
         timed("barrier", M.barrier)
-        if any(not torch.equal(got[k], ep[k]) for k in ep) \
-                or not torch.equal(tree_t["a"], ref) \
-                or not torch.equal(g.get_state(), state):
+        if any(got[k] is ep[k] or not torch.equal(got[k], ep[k])
+               for k in ep) or not torch.equal(g.get_state(), state):
             raise AssertionError("a gather or broadcast changed its input")
     finally:
+        M.training_group = real_group
         dist.destroy_process_group()
-    log("phase 11 NCCL at world size 1: every helper the identity on CUDA "
-        "tensors; ms %s  [%s]" % (json.dumps(
+    log("phase 11 NCCL at world size 1: every collective's body the "
+        "identity on CUDA tensors; ms %s  [%s]" % (json.dumps(
             {k: round(v, 3) for k, v in ms.items()}), card))
     return ms
 

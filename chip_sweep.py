@@ -75,7 +75,8 @@ prune-dynamic boards:
 * ``ranks-time``: two ``gloo`` ranks on the card, each running
   ``RANK_ITERATIONS`` PPO iterations of ``cs.P11_LANES`` global lanes after
   a warm-up one: each iteration's ms and ``models/nets.py::conv_searches``
-  after it (None where the checkout has no such counter).
+  after it (None where the checkout has no such counter); then
+  ``cs.P11_DQN_UNITS`` DQN units, each replay push's ms.
 * ``convs``: each convolution of the policy trunk (25x25 views, 15
   channels) at each of ``CONV_SAMPLES``, in strict float32: its forward,
   input gradient and weight gradient (``aten.convolution_backward`` with
@@ -630,29 +631,27 @@ def plant_fault(fault):
             return PPO.SampleShard((s.index + agents) % s.total, s.total)
         PPO.sample_shard = shifted
     elif fault == "ppo_local_wsum":
-        def local_wsum(cfg, model, mb):
-            w = mb["weight"]
-            terms = PPO._loss_terms(cfg, model, mb["obs"], mb["actions"],
-                                    mb["action_prob"], mb["values"],
-                                    mb["returns"], mb["advantages"])
+        def local_wsum(cfg, model, obs, actions, old_policy, old_values,
+                       returns, advantages, w):
+            terms = PPO._loss_terms(cfg, model, obs, actions, old_policy,
+                                    old_values, returns, advantages)
             sums = torch.stack([torch.sum(x * w) for x in terms])
             tot = M.all_reduce_sum(torch.cat([sums.detach(),
                                               w.sum().reshape(1)]))
             return PPO._combine(cfg, *(
                 tot[:3] / torch.clamp(tot[3], min=1.0)
                 + (sums - sums.detach()) / torch.clamp(w.sum(), min=1.0)))
-        PPO._sharded_loss = local_wsum
+        PPO.calculate_loss = local_wsum
     elif fault == "dqn_index":
         real_opt = D.optimize
 
-        def off_by_one(cfg, dstate, generator, n_env_steps, sample_idx=None,
-                       lanes=None):
+        def off_by_one(cfg, dstate, generator, n_env_steps, sample_idx=None):
             size = max(dstate.replay.size(), 1)
             idx = torch.randint(0, size, (cfg.batch_size,),
                                 generator=generator,
                                 device=dstate.replay.obs.device)
             return real_opt(cfg, dstate, generator, n_env_steps,
-                            (idx + 1) % size, lanes)
+                            (idx + 1) % size)
         D.optimize = off_by_one
     elif fault == "dqn_scale":
         real_loss = D.td_loss
@@ -745,8 +744,50 @@ def timed_iterations(dev, levels, tree, lanes):
     return out
 
 
+def timed_pushes(dev, levels, lanes):
+    """One rank's DQN part of ``ranks-time``, in place of ``cs.p11_dqn``:
+    ``cs.P11_DQN_UNITS`` units of ``dqn.train_chunk``, each replay push's
+    ms (the card synchronised before and after; the first pushes are
+    empty until the ``multi_step`` rings fill)."""
+    from safelife_tpu_torch.env import env as E, wrappers as W
+    from safelife_tpu_torch.env.state import pack_levels
+    from safelife_tpu_torch.training import dqn as D
+
+    # A checkout that still has a push of its own for ranks times that one.
+    name = next(n for n in ("push_emissions_sharded", "push_emissions")
+                if hasattr(D, n))
+    push, ms = getattr(D, name), []
+
+    def timed(*args):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = push(*args)
+        torch.cuda.synchronize(dev)
+        ms.append(round(1e3 * (time.perf_counter() - t), 3))
+        return out
+
+    setattr(D, name, timed)
+    pool = pack_levels(levels, device=dev)
+    env_cfg = E.EnvConfig(view_shape=cs.VIEW, output_channels=None)
+    wcfg = W.WrapperConfig(se_baseline="inaction")
+    cfg = D.DQNConfig()
+    ds = D.init_dqn_state(cfg, cs.q_network(dev, 7),
+                          lanes.size * pool.num_agents, cs.VIEW, torch.int32,
+                          device=dev)
+    ws, obs = W.reset(env_cfg, wcfg, pool, cs.P11_LANES, device=dev,
+                      lanes=lanes)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_steps = max(cfg.optimize_interval // cs.P11_LANES, 1)
+    for _ in range(cs.P11_DQN_UNITS):
+        ds, ws, obs, _ = D.train_chunk(env_cfg, wcfg, cfg, pool, ds, ws, obs,
+                                       gen, n_steps, 1, device=dev,
+                                       lanes=lanes)
+    return {"push": name, "push_ms": ms, "pushed": ds.replay.idx}
+
+
 def timed_rank(*args):
     cs.p11_ppo = timed_iterations
+    cs.p11_dqn = timed_pushes
     return cs.p11_rank(*args)
 
 
@@ -762,12 +803,12 @@ def rank_timings(dev, card):
     cs.p11_rank = timed_rank
     try:
         ranks = cs.run_p11_ranks(cs.P11_RANKS, "gloo",
-                                 [dev.index or 0] * cs.P11_RANKS, ("ppo",),
-                                 tree)
+                                 [dev.index or 0] * cs.P11_RANKS,
+                                 ("ppo", "dqn"), tree)
     finally:
         cs.p11_rank = real_rank
     for r, x in enumerate(ranks):
-        print("ranks-time rank %d: %s  [%s]" % (r, json.dumps(x["ppo"]), card),
+        print("ranks-time rank %d: %s  [%s]" % (r, json.dumps(x), card),
               flush=True)
 
 

@@ -317,9 +317,10 @@ class LevelPoolManager:
     (round-robin), keeping the levels diverse without waiting on the
     generator.
 
-    In a multi-process run the rank's ``pool_size`` levels fill its slice
+    The rank's ``pool_size`` levels fill its slice
     ``[rank * pool_size, (rank + 1) * pool_size)`` of the gathered ``pool``,
-    and the rank refreshes only the slots of its slice.
+    and the rank refreshes only the slots of its slice. In one process the
+    slice is the pool.
     """
 
     def __init__(self, iterator, pool_size=64, pad_agents=None,
@@ -333,19 +334,19 @@ class LevelPoolManager:
         self._starved = 0
         self._restored_meta = None
         self._meta = None  # the live per-slot metadata (level_meta)
-        self._multi = M.process_count() > 1
-        self._local_pool = None  # the rank's slice (multi-process)
-        if not self._multi:
-            self.pool = pack_levels(levels, pad_agents, pad_exits,
-                                    device=self.device)
-            return
         # The padding must agree before the pools can be gathered.
         agents = max([pad_agents or 1] + [lv.num_agents for lv in levels])
         exits = max([pad_exits or 1] + [_num_exits(lv) for lv in levels])
-        pads = torch.stack(M.all_gather(torch.tensor(
-            [agents, exits], device=self.device))).max(0).values.tolist()
-        self._local_pool = pack_levels(levels, pads[0], pads[1],
-                                       device=self.device)
+        pads = np.max(M.all_gather_object((agents, exits)), 0).tolist()
+        # A level past an explicit pad is refused on every rank, as
+        # ``pack_levels`` refuses it.
+        for name, pad, need in (("agents", pad_agents, pads[0]),
+                                ("exits", pad_exits, pads[1])):
+            if pad and need > pad:
+                raise ValueError("level has %d %s > pad_%s=%d"
+                                 % (need, name, name, pad))
+        # The rank's slice of the pool; in one process the pool itself.
+        self._local_pool = pack_levels(levels, *pads, device=self.device)
         self.pool = M.allgather_level_pool(self._local_pool)
 
     def close(self):
@@ -391,13 +392,12 @@ class LevelPoolManager:
             packed, ["restored/slot-%d" % i for i in range(b.shape[0])])))
         if self._meta is not None:
             self._meta.update(self._restored_meta)
-        self.pool = packed
-        if self._multi:
-            off = M.process_index() * n
-            self._local_pool = LevelBatch(
-                **{k: v[off:off + n].clone() for k, v in fields.items()},
-                all_goals_static=packed.all_goals_static,
-                spawner_free=packed.spawner_free)
+        off = M.process_index() * n
+        self._local_pool = LevelBatch(
+            **{k: v[off:off + n] for k, v in fields.items()},
+            all_goals_static=packed.all_goals_static,
+            spawner_free=packed.spawner_free)
+        self.pool = M.allgather_level_pool(self._local_pool)
         return self.pool
 
     def level_meta(self):
@@ -405,15 +405,10 @@ class LevelPoolManager:
         manager's own: :meth:`refresh` updates the entries of the slots it
         swaps, so a holder always sees the level now in each slot."""
         if self._meta is None:
-            if self._multi:
-                # Every rank's slots, in rank order (a collective).
-                local = level_metadata(self._host_levels, self._local_pool)
-                parts = [None] * M.process_count()
-                torch.distributed.all_gather_object(
-                    parts, [local[i] for i in range(len(local))])
-                self._meta = dict(enumerate(m for p in parts for m in p))
-            else:
-                self._meta = level_metadata(self._host_levels, self.pool)
+            # Every rank's slots, in rank order (a collective).
+            local = level_metadata(self._host_levels, self._local_pool)
+            parts = M.all_gather_object([local[i] for i in range(len(local))])
+            self._meta = dict(enumerate(m for p in parts for m in p))
             if self._restored_meta:
                 self._meta.update(self._restored_meta)
         return self._meta
@@ -469,11 +464,9 @@ class LevelPoolManager:
             if isinstance(in_use, torch.Tensor):
                 in_use = in_use.cpu().numpy()
             busy[np.asarray(in_use, np.int64)] = True
-        if self._multi:
-            # Lanes on any rank may be on this rank's slots. Every rank
-            # makes this collective, pending levels or not.
-            busy = M.all_reduce_sum(torch.as_tensor(
-                busy, dtype=torch.int32, device=self.device)).cpu().numpy() > 0
+        # Lanes on any rank may be on this rank's slots. Every rank makes
+        # this collective, pending levels or not.
+        busy = np.any(M.all_gather_object(busy), 0)
 
         # Slots round-robin from the last one filled, skipping busy ones.
         slots = []
@@ -506,20 +499,18 @@ class LevelPoolManager:
             fresh = pack_levels(kept, self.pool.num_agents,
                                 self.pool.exit_locs.shape[-2],
                                 device=self.device)
-            _swap_rows(self._local_pool if self._multi else self.pool,
-                       fresh, torch.as_tensor(slots, dtype=torch.int64,
-                                              device=self.device))
+            _swap_rows(self._local_pool, fresh,
+                       torch.as_tensor(slots, dtype=torch.int64,
+                                       device=self.device))
             updates = dict(zip((off + s for s in slots), slot_metadata(
                 fresh, [lv.name or ("level-%d" % s)
                         for lv, s in zip(kept, slots)])))
-        if self._multi:
-            # Every rank gathers the pool again, in place (holders of the
-            # pool see the new levels), and every rank's swapped slots.
-            _swap_rows(self.pool, M.allgather_level_pool(self._local_pool),
-                       torch.arange(n_slots * world, device=self.device))
-            parts = [None] * world
-            torch.distributed.all_gather_object(parts, updates)
-            updates = {k: v for p in parts for k, v in p.items()}
+        # Every rank gathers the pool again, in place (holders of the pool
+        # see the new levels), and every rank's swapped slots.
+        _swap_rows(self.pool, M.allgather_level_pool(self._local_pool),
+                   torch.arange(n_slots * world, device=self.device))
+        updates = {k: v for p in M.all_gather_object(updates)
+                   for k, v in p.items()}
         for s in updates:
             if self._restored_meta:
                 self._restored_meta.pop(s, None)
@@ -645,7 +636,10 @@ def _num_exits(lv):
 
 def _swap_rows(pool, fresh, idx):
     """Rows ``idx`` of every tensor of ``pool`` <- the rows of ``fresh``,
-    in place: holders of the pool see the new levels."""
+    in place: holders of the pool see the new levels. Nothing to do where
+    ``fresh`` is ``pool``."""
+    if fresh is pool:
+        return pool
     for f in dataclasses.fields(pool):
         if f.name not in _FLAGS:
             getattr(pool, f.name).index_copy_(0, idx, getattr(fresh, f.name))

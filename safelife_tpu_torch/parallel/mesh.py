@@ -21,27 +21,24 @@ The JAX functions and their counterparts:
 * ``per_host_seed`` -> :func:`per_host_seed`, bit for bit; ``is_logging_host``
   -> :func:`is_logging_host`; ``jax.process_index``/``process_count`` ->
   :func:`process_index`/:func:`process_count`;
-* ``training_mesh`` -> :func:`training_group`: None in one process, so a
-  one-process run keeps its own code path;
+* ``training_mesh`` -> :func:`training_group`: None in one process;
 * ``batch_sharding``, ``shard_env_state`` and ``global_batch`` ->
   :func:`lane_range`: which global lanes a rank holds. A rank's tensors
   hold only its lanes; there is no global array to place;
-* ``replicate`` and ``global_replicated`` -> :func:`broadcast_tree` (from
-  rank 0);
 * the gradient ``psum`` XLA inserts -> :func:`allreduce_grads`;
 * ``allgather_level_pool`` -> :func:`allgather_level_pool` (static flags
-  ANDed); ``gather_episodes`` -> :func:`gather_episodes`;
-* ``addressable_values`` -> :func:`addressable_values`, the identity on a
-  rank's own tensors (a rank holds its lanes and nothing else).
+  ANDed); ``gather_episodes`` -> :func:`gather_episodes`.
 
-``make_mesh``, ``batch_sharding`` and ``replicated_sharding`` have no
-counterpart: a process group has no device mesh or sharding annotations,
-and a rank's tensors are its shard. No path of the port calls
-:func:`broadcast_tree` or :func:`addressable_values` (every rank builds
-the same state from the same seed); they stand as the counterparts of
-JAX's, used by the tests and ``chip_smoke.py`` only.
+``make_mesh``, ``batch_sharding``, ``replicated_sharding``, ``replicate``,
+``global_replicated`` and ``addressable_values`` have no counterpart: a
+process group has no device mesh or sharding annotations, a rank's
+tensors are its shard, and every rank builds the same state from the
+same seed.
 
-Every collective runs over the default process group.
+Every collective runs over the default process group. Without one
+(:func:`training_group` None) each is the identity: a reduction or a
+gather over one rank. So the learner, the replay push and the level
+pool manager run one path, in one process and over R ranks.
 
 Backends: ``nccl`` for a CUDA device, ``gloo`` for the CPU, unless the
 caller names one. ``gloo`` also takes CUDA tensors for the all-reduce,
@@ -126,7 +123,7 @@ def per_host_seed(seed, process_index=None):
 
 def training_group():
     """The process group of a multi-process run (the default group), or
-    None in one process, whose code path then stays as it is."""
+    None in one process, where every collective here is the identity."""
     if process_count() == 1:
         return None
     return dist.group.WORLD
@@ -179,15 +176,31 @@ def draw_global(draw, local_shape, lanes):
 
 def all_gather(tensor):
     """Every rank's ``tensor`` (equal shapes), in rank order, on
-    ``tensor``'s device."""
+    ``tensor``'s device; ``[tensor]`` without a process group."""
+    if training_group() is None:
+        return [tensor]
     src = tensor.contiguous()
     out = [torch.empty_like(src) for _ in range(dist.get_world_size())]
     dist.all_gather(out, src)
     return out
 
 
+def all_gather_object(obj):
+    """Every rank's ``obj`` (anything picklable), in rank order; ``[obj]``
+    without a process group."""
+    if training_group() is None:
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
 def all_reduce_sum(tensor):
-    """The sum over the ranks of ``tensor``, a new tensor on its device."""
+    """The sum over the ranks of ``tensor``, outside the autograd graph:
+    a new tensor on its device, or ``tensor.detach()`` without a process
+    group."""
+    if training_group() is None:
+        return tensor.detach()
     out = tensor.detach().clone().contiguous()
     dist.all_reduce(out, op=dist.ReduceOp.SUM)
     return out
@@ -195,35 +208,15 @@ def all_reduce_sum(tensor):
 
 def barrier():
     """Wait for every rank; nothing without a process group."""
-    if dist.is_initialized():
+    if training_group() is not None:
         dist.barrier()
-
-
-def broadcast_tree(tree, src=0):
-    """Rank ``src``'s values of every tensor of ``tree`` (a tensor, a
-    dataclass, or dicts, lists and tuples of them), in place on every
-    rank; returns ``tree``. The identity without a process group."""
-    if not dist.is_initialized():
-        return tree
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            broadcast_tree(getattr(tree, f.name), src)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            broadcast_tree(v, src)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            broadcast_tree(v, src)
-    elif isinstance(tree, torch.Tensor):
-        dist.broadcast(tree.data, src=src)
-    return tree
 
 
 def sync_generator(generator, src=0):
     """Give every rank rank ``src``'s state of ``generator``: after work
     that only rank 0 draws for (its evaluations), every rank goes on from
     the state a one-process run would have."""
-    if not dist.is_initialized():
+    if training_group() is None:
         return generator
     box = [generator.get_state() if process_index() == src else None]
     dist.broadcast_object_list(box, src=src)
@@ -253,7 +246,10 @@ def _set_grads(params, flat):
 
 def allreduce_grads(model):
     """Sum every parameter's gradient over the ranks, in place: one flat
-    float32 bucket, one all-reduce."""
+    float32 bucket, one all-reduce. Returns ``model``, untouched without a
+    process group."""
+    if training_group() is None:
+        return model
     params, flat = _grad_bucket(model)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM)
     _set_grads(params, flat)
@@ -263,7 +259,10 @@ def allreduce_grads(model):
 def broadcast_grads(model, src=0):
     """Rank ``src``'s gradients on every rank, in place (one flat bucket):
     ranks that computed the same gradients keep bitwise equal ones even
-    where a library's kernels do not sum in a fixed order."""
+    where a library's kernels do not sum in a fixed order. Returns
+    ``model``, untouched without a process group."""
+    if training_group() is None:
+        return model
     params, flat = _grad_bucket(model)
     dist.broadcast(flat, src=src)
     _set_grads(params, flat)
@@ -276,9 +275,9 @@ _POOL_FLAGS = ("all_goals_static", "spawner_free")
 def allgather_level_pool(pool):
     """Every rank's level pool (equal shapes: the ranks agree on their
     padding first) concatenated along the level axis, in rank order: the
-    same replicated pool on every rank. The static flags are ANDed. The
-    identity without a process group."""
-    if not dist.is_initialized():
+    same replicated pool on every rank. The static flags are ANDed.
+    ``pool`` itself without a process group."""
+    if training_group() is None:
         return pool
     fields = {}
     for f in dataclasses.fields(pool):
@@ -295,8 +294,8 @@ def gather_episodes(tree, axis=0):
     """Every rank's tensors of ``tree`` (episode records, or any tensor,
     dataclass or dict of them, nested) concatenated along ``axis`` in rank
     order, on every rank: with ``axis`` the lane axis, the global batch's.
-    The identity without a process group."""
-    if not dist.is_initialized():
+    ``tree`` itself without a process group."""
+    if training_group() is None:
         return tree
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
@@ -305,11 +304,3 @@ def gather_episodes(tree, axis=0):
     if isinstance(tree, dict):
         return {k: gather_episodes(v, axis) for k, v in tree.items()}
     return torch.cat(all_gather(tree), axis)
-
-
-def addressable_values(x):
-    """This rank's values of ``x`` as a host array: the rank's tensors hold
-    its own lanes only, so this is the identity (a host copy)."""
-    if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    return np.asarray(x)

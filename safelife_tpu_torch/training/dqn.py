@@ -39,7 +39,7 @@ pool's device; ``actions`` and ``sample_idx`` inject the draws instead
 Sharded over ranks (a rank's ``lanes``, :mod:`..parallel.mesh`), each
 rank keeps the n-step rings of its own lanes, and the replay is
 replicated: a unit's emissions are gathered from every rank and pushed in
-global lane order (:func:`push_emissions_sharded`), so every rank's replay
+global lane order (:func:`push_emissions`), so every rank's replay
 equals the one-process replay. The sample indices come from the generator
 that every rank seeds alike, so every rank takes the same Adam step;
 rank 0's gradients are broadcast before it, which keeps the parameters
@@ -52,8 +52,6 @@ import dataclasses
 import torch
 
 from ..env import wrappers as W
-import numpy as np
-
 from ..models.nets import learner_precision
 from ..parallel import mesh as M
 from ..utils.device import require_device, resolve_device
@@ -275,55 +273,37 @@ def push_emissions(buf, emissions):
     """Write a chunk's step emissions (a list of
     :func:`step_trajectories`' dicts, in step order; [T, K, N] flattened
     in arrival order) to the replay buffer, in place: one push. Returns
-    ``buf``."""
-    pos, slots = _land(buf, torch.stack([e["valid"] for e in emissions]))
+    ``buf``.
+
+    Over R ranks each rank's [T, K, n] planes hold its lanes' slots
+    (``n = N / R``), and the push writes the valid entries of the global
+    [T, K, N] planes, so every rank's replay equals the one-process
+    replay: the validity masks are all-gathered, each rank builds the
+    rows of the kept entries that lie in its lanes (zeros elsewhere), and
+    the rows are summed over the ranks, bit for bit (as integers). In one
+    process the gather and the sum are the identity."""
+    valid = torch.stack([e["valid"] for e in emissions])
+    n = valid.shape[2]
+    masks = torch.stack(M.all_gather(valid), 2)  # [T, K, R, n]
+    world = masks.shape[2]
+    pos, slots = _land(buf, masks)
     if not pos.numel():
         return buf
-    planes, obs, next_obs = _emission_rows(emissions, pos)
-    _write(buf, slots, obs=obs, next_obs=next_obs, **planes)
-    return buf
-
-
-def push_emissions_sharded(buf, emissions, lanes):
-    """:func:`push_emissions` of the emissions of every rank: each rank's
-    [T, K, n] planes hold its lanes' slots (``n = N / R``), and the push
-    writes the valid entries of the global [T, K, N] planes in arrival
-    order, so every rank's replay equals the one-process replay. The
-    validity masks are all-gathered and read on the host (the push's one
-    host sync), then each rank's valid rows, padded to the longest, are
-    all-gathered and put in global order. Returns ``buf``."""
-    valid = torch.stack([e["valid"] for e in emissions])
-    t_n, k_n, n = valid.shape
-    masks = torch.stack(M.all_gather(valid.to(torch.uint8)))
-    r, t, k, j = np.nonzero(masks.cpu().numpy())
-    world = masks.shape[0]
-    counts = np.bincount(r, minlength=world)
-    total = int(counts.sum())
-    first = max(total - buf.capacity, 0)
-    slots = (buf.idx + torch.arange(first, total, device=valid.device)) \
-        % buf.capacity
-    buf.idx += total
-    if not total:
-        return buf
-    mine = r == M.process_index()
-    pos = torch.as_tensor(((t * k_n + k) * n + j)[mine], device=valid.device)
-    planes, obs, next_obs = _emission_rows(emissions, pos)
-    ints = torch.stack([planes["action"].to(torch.int32),
-                        planes["reward"].view(torch.int32),
-                        planes["done"].to(torch.int32)], 1)
-    width = max(int(counts.max()), 1)
-    gathered = []
-    for x in (ints, obs, next_obs):
-        pad = x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))
-        parts = M.all_gather(torch.cat([x, pad]))
-        gathered.append(torch.cat([p[:c] for p, c in zip(parts, counts)]))
-    # Rank-major rows -> arrival order of the global planes.
-    key = (t * k_n + k) * (world * n) + r * n + j
-    order = torch.as_tensor(np.argsort(key, kind="stable")[first:],
-                            device=valid.device)
-    ints, obs, next_obs = (x.index_select(0, order) for x in gathered)
-    _write(buf, slots, obs=obs, next_obs=next_obs, action=ints[:, 0],
-           reward=ints[:, 1].view(torch.float32), done=ints[:, 2] != 0)
+    # A global position of [T, K, R, n] -> the rank's [T, K, n] one.
+    tk, lane = pos // (world * n), pos % (world * n)
+    planes, obs, next_obs = _emission_rows(emissions, tk * n + lane % n)
+    other = lane // n != M.process_index()
+    rows = {"action": planes["action"].to(torch.int32),
+            "reward": planes["reward"].view(torch.int32),
+            "done": planes["done"].to(torch.int32),
+            "obs": obs, "next_obs": next_obs}
+    rows = {k: M.all_reduce_sum(v.masked_fill_(
+        other.reshape((-1,) + (1,) * (v.dim() - 1)), 0))
+        for k, v in rows.items()}
+    _write(buf, slots, action=rows["action"],
+           reward=rows["reward"].view(torch.float32),
+           done=rows["done"] != 0, obs=rows["obs"],
+           next_obs=rows["next_obs"])
     return buf
 
 
@@ -422,25 +402,19 @@ def collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, n_steps,
         dstate.num_steps += b if lanes is None else lanes.total
         emissions.append(em)
         records.append({k: info[k] for k in EPISODE_KEYS})
-    if lanes is None:
-        dstate.replay = push_emissions(dstate.replay, emissions)
-    else:
-        dstate.replay = push_emissions_sharded(dstate.replay, emissions,
-                                               lanes)
+    dstate.replay = push_emissions(dstate.replay, emissions)
     return ws, obs, _stack(records)
 
 
-def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None,
-             lanes=None):
+def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
     """One Adam step on ``cfg.batch_size`` entries drawn uniformly from the
     replay (or at ``sample_idx``) once it holds ``replay_initial``; while
     it is cold the loss is reported and nothing moves. The target network
     then syncs if ``num_steps`` crossed a multiple of
     ``target_update_interval`` over the ``n_env_steps`` steps just
-    collected. With a rank's ``lanes`` every rank holds the same replay
-    and draws the same indices; rank 0's gradients are broadcast before
-    the step. Returns the metrics (the loss's from before the
-    step)."""
+    collected. Over ranks every rank holds the same replay and draws the
+    same indices; rank 0's gradients are broadcast before the step.
+    Returns the metrics (the loss's from before the step)."""
     replay = dstate.replay
     size = replay.size()
     dev = replay.obs.device
@@ -459,8 +433,7 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None,
         if warm:
             dstate.optimizer.zero_grad(set_to_none=False)
             loss.backward()
-            if lanes is not None:
-                M.broadcast_grads(dstate.model)
+            M.broadcast_grads(dstate.model)
             dstate.optimizer.step()
     n, every = dstate.num_steps, cfg.target_update_interval
     if n // every > (n - n_env_steps) // every:
@@ -483,8 +456,7 @@ def collect_and_optimize(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
     b = obs.shape[0] if lanes is None else lanes.total
     ws, obs, episodes = collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
                                 generator, n_steps, actions, lanes)
-    metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx,
-                       lanes)
+    metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx)
     metrics["episodes"] = episodes
     return dstate, ws, obs, metrics
 

@@ -31,7 +31,7 @@ replicated: each epoch's permutation runs over the global sample count,
 drawn alike on every rank, and a rank takes the samples of each global
 minibatch that lie in its lanes. A minibatch's loss is the global one:
 each rank's weighted sums of the three terms and of the weights are
-all-reduced (:func:`_sharded_loss`), so the entropy clamp takes the
+all-reduced (:func:`calculate_loss`), so the entropy clamp takes the
 branch of the global mean on every rank; the gradients are then summed
 over the ranks (``allreduce_grads``) and every rank takes the same Adam
 step. The iteration's metrics are global on every rank.
@@ -212,15 +212,27 @@ def _combine(cfg, policy_loss, value_loss, entropy_mean):
 
 def calculate_loss(cfg, model, obs, actions, old_policy, old_values, returns,
                    advantages, weight=None):
-    """(loss, metrics). ``weight`` masks samples out of every mean (padded
-    or already-finished agents); ``None`` means all ones."""
-    terms = _loss_terms(cfg, model, obs, actions, old_policy, old_values,
-                        returns, advantages)
+    """(loss, metrics) of a minibatch, of which these rows are the rank's
+    (possibly none). ``weight`` masks samples out of every mean (padded
+    or already-finished agents); ``None`` means all ones. The weighted
+    sums of the three terms and of the weights are summed over the ranks,
+    so the loss's value is the global one, equal on every rank, and the
+    entropy clamp follows the global mean; the gradient is that of the
+    rank's own rows, which the ranks then sum (``allreduce_grads``). In
+    one process both are the minibatch's own."""
     if weight is None:
         weight = torch.ones_like(advantages)
-    wsum = torch.clamp(weight.sum(), min=1.0)
-    means = [torch.sum(x * weight) / wsum for x in terms]
-    return _combine(cfg, *means)
+    if weight.numel():
+        terms = _loss_terms(cfg, model, obs, actions, old_policy, old_values,
+                            returns, advantages)
+        sums = torch.stack([torch.sum(x * weight) for x in terms])
+    else:
+        sums = torch.zeros(3, device=weight.device)
+    tot = M.all_reduce_sum(
+        torch.cat([sums.detach(), weight.sum().reshape(1)]))
+    wsum = torch.clamp(tot[3], min=1.0)
+    # Value: the global sums, exactly; gradient: the rank's rows'.
+    return _combine(cfg, *((tot[:3] + (sums - sums.detach())) / wsum))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,31 +254,10 @@ def sample_shard(steps, agents, lanes, device):
     return SampleShard(index, steps * lanes.total * agents)
 
 
-def _sharded_loss(cfg, model, mb):
-    """(loss, metrics) of a global minibatch of which ``mb`` holds the
-    rank's rows (possibly none). The weighted sums of the three terms and
-    the weights are all-reduced, so the loss's value is the global one,
-    equal on every rank, and the entropy clamp follows the global mean;
-    the gradient is that of the rank's own rows, which the ranks then
-    sum."""
-    if mb["weight"].numel():
-        terms = _loss_terms(cfg, model, mb["obs"], mb["actions"],
-                            mb["action_prob"], mb["values"], mb["returns"],
-                            mb["advantages"])
-        sums = torch.stack([torch.sum(x * mb["weight"]) for x in terms])
-    else:
-        sums = torch.zeros(3, device=mb["weight"].device)
-    tot = M.all_reduce_sum(
-        torch.cat([sums.detach(), mb["weight"].sum().reshape(1)]))
-    wsum = torch.clamp(tot[3], min=1.0)
-    # Value: the global sums, exactly; gradient: the rank's rows'.
-    return _combine(cfg, *((tot[:3] + (sums - sums.detach())) / wsum))
-
-
-def _batch_loss(cfg, model, batch, chunk, shard=None):
-    """:func:`calculate_loss` over the whole batch without a graph, in
-    chunks of ``chunk`` samples (the unpacked views of all samples at once
-    would take gigabytes); over the global batch with a ``shard``."""
+def _batch_loss(cfg, model, batch, chunk):
+    """:func:`calculate_loss` over the whole (global) batch without a
+    graph, in chunks of ``chunk`` samples (the unpacked views of all
+    samples at once would take gigabytes)."""
     n = batch["obs"].shape[0]
     chunk = max(chunk, 1)
     sums = torch.zeros(3, device=batch["advantages"].device)
@@ -278,9 +269,8 @@ def _batch_loss(cfg, model, batch, chunk, shard=None):
                                 mb["action_prob"], mb["values"],
                                 mb["returns"], mb["advantages"])
             sums += torch.stack([torch.sum(x * mb["weight"]) for x in terms])
-    sums = torch.cat([sums, batch["weight"].sum().reshape(1)])
-    if shard is not None:
-        sums = M.all_reduce_sum(sums)
+    sums = M.all_reduce_sum(
+        torch.cat([sums, batch["weight"].sum().reshape(1)]))
     return _combine(cfg, *(sums[:3] / torch.clamp(sums[3], min=1.0)))
 
 
@@ -334,25 +324,16 @@ def train_on_batch(cfg, ppo_state, batch, generator, perms=None,
                 perm = torch.randperm(n, generator=generator, device=dev)
             else:
                 perm = torch.as_tensor(perms[epoch], device=dev).long()
-            if shard is None:
-                for a, b in bounds:
-                    with span("ppo/minibatch"):
-                        idx = perm[a:b]
-                        mb = {k: v.index_select(0, idx)
-                              for k, v in batch.items()}
-                        loss, _ = calculate_loss(
-                            cfg, model, mb["obs"], mb["actions"],
-                            mb["action_prob"], mb["values"], mb["returns"],
-                            mb["advantages"], mb["weight"])
-                        opt.zero_grad(set_to_none=False)
-                        loss.backward()
-                        opt.step()
-                continue
-            for idx in _shard_minibatches(perm, bounds, local_of):
+            rows = ([perm[a:b] for a, b in bounds] if shard is None
+                    else _shard_minibatches(perm, bounds, local_of))
+            for idx in rows:
                 with span("ppo/minibatch"):
                     mb = {k: v.index_select(0, idx)
                           for k, v in batch.items()}
-                    loss, _ = _sharded_loss(cfg, model, mb)
+                    loss, _ = calculate_loss(
+                        cfg, model, mb["obs"], mb["actions"],
+                        mb["action_prob"], mb["values"], mb["returns"],
+                        mb["advantages"], mb["weight"])
                     opt.zero_grad(set_to_none=False)
                     if idx.numel():
                         loss.backward()
@@ -414,15 +395,13 @@ def train_iteration(env_cfg, wcfg, ppo_cfg, pool, ppo_state, ws, obs,
         with span("ppo/metrics"):
             chunk = _minibatch_bounds(batch["obs"].shape[0],
                                       ppo_cfg.num_minibatches)[0][1]
-            _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk,
-                                     shard)
+            _, metrics = _batch_loss(ppo_cfg, ppo_state.model, batch, chunk)
             w = batch["weight"]
             sums = torch.stack([w.sum()] + [
                 torch.sum(x * w) for x in (traj["rewards"].reshape(-1),
                                            batch["values"],
                                            batch["advantages"])])
-            if shard is not None:
-                sums = M.all_reduce_sum(sums)
+            sums = M.all_reduce_sum(sums)
             wsum = torch.clamp(sums[0], min=1.0)
             metrics["reward_mean"] = sums[1] / wsum
             metrics["values_mean"] = sums[2] / wsum

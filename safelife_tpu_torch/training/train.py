@@ -304,27 +304,23 @@ def _gather_samples(ep_samples):
     return {k: v[first, rows] for k, v in parts.items()}
 
 
-def _episode_records(records, lanes):
-    """A chunk's episode records ([U*T*b, ...] on each rank, steps
-    outermost) as host arrays of the global batch's ([U*T*B, ...]), in
-    the one-process order."""
-    if lanes is not None:
-        records = {k: v.reshape((-1, lanes.size) + tuple(v.shape[1:]))
-                   for k, v in records.items()}
-        records = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in
-                   M.gather_episodes(records, 1).items()}
-    return {k: v.cpu().numpy() for k, v in records.items()}
+def _episode_records(records, n_lanes):
+    """A chunk's episode records ([U*T*b, ...] on each rank of ``n_lanes``
+    = b lanes, steps outermost) as host arrays of the global batch's
+    ([U*T*B, ...]), in the one-process order."""
+    records = {k: v.reshape((-1, n_lanes) + tuple(v.shape[1:]))
+               for k, v in records.items()}
+    return {k: v.reshape((-1,) + tuple(v.shape[2:])).cpu().numpy()
+            for k, v in M.gather_episodes(records, 1).items()}
 
 
-def _save_checkpoint(ckpt, step, learner, ws, pool, extra, lanes,
-                     force=False):
+def _save_checkpoint(ckpt, step, learner, ws, pool, extra, force=False):
     """Save a checkpoint when one is due (or ``force``): in a multi-process
     run every rank gathers the env state and rank 0 alone writes the
     global state, then every rank waits for it."""
     if not (force or ckpt.due(step)):
         return
-    if lanes is not None:
-        ws = M.gather_episodes(ws, 0)
+    ws = M.gather_episodes(ws, 0)
     if M.is_logging_host():
         ckpt.save(step, _checkpoint_state(learner, ws, pool), extra)
     M.barrier()
@@ -418,21 +414,19 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
             se_penalty_coef=bundle.se_penalty_schedule(),
             min_perf_fraction=bundle.exit_difficulty_schedule(),
             device=dev, lanes=lanes)
-        episodes = _episode_records(metrics.pop("episodes"), lanes)
+        episodes = _episode_records(metrics.pop("episodes"), obs.shape[0])
         ep_samples = metrics.pop("ep_samples")
         if wcfg.exhaustive_se:
             # Every lane's records: rows flattened as the episode records
             # are, so a row index names the same episode in both.
-            if lanes is not None:
-                ep_samples = M.gather_episodes(ep_samples, 1)
-            ep_samples = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                          for k, v in ep_samples.items()}
+            ep_samples = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v
+                          in M.gather_episodes(ep_samples, 1).items()}
             if logging_host:
                 se_map = _exhaustive_side_effects(ep_samples, bundle,
                                                   env_cfg, generator)
                 collector.side_effects_fn = \
                     lambda lane, info: se_map.get(int(lane))
-        elif lanes is not None:
+        else:
             ep_samples = _gather_samples(ep_samples)
         # The other ranks keep the curricula's view of the episodes
         # without logging them.
@@ -450,8 +444,7 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
             # ``pool`` is the pool this chunk's lanes stepped on (before
             # the refresh): a resume pairs them again.
             _save_checkpoint(ckpt, n, pstate, ws, pool,
-                             dict(bundle.training_logger.cumulative_stats),
-                             lanes)
+                             dict(bundle.training_logger.cumulative_stats))
 
         if n >= next_report:
             next_report = (n // report_interval + 1) * report_interval
@@ -464,13 +457,12 @@ def train_ppo(bundle, total_steps=6e6, batch_size=64, seed=0,
                 run_validation(model, bundle, data_dir, generator,
                                device=dev)
             M.barrier()
-        if lanes is not None:
-            M.sync_generator(generator)
+        M.sync_generator(generator)
 
     if ckpt:
         _save_checkpoint(ckpt, pstate.num_steps, pstate, ws, pool,
                          dict(bundle.training_logger.cumulative_stats),
-                         lanes, force=True)
+                         force=True)
     return model, pstate
 
 
@@ -543,7 +535,7 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
         dstate, ws, obs, metrics = dqn.train_chunk(
             env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, chunk,
             iters_per_chunk, device=dev, lanes=lanes)
-        episodes = _episode_records(metrics.pop("episodes"), lanes)
+        episodes = _episode_records(metrics.pop("episodes"), obs.shape[0])
         collector.observe(episodes,
                           batch_steps=chunk * batch_size * iters_per_chunk,
                           record_only=not M.is_logging_host())
@@ -555,15 +547,14 @@ def train_dqn(bundle, total_steps=6e6, batch_size=32, seed=0,
             # The chunk's own (pre-refresh) pool: the saved env state's
             # lanes resume against the levels they are mid-episode on.
             _save_checkpoint(ckpt, n, dstate, ws, pool,
-                             dict(bundle.training_logger.cumulative_stats),
-                             lanes)
+                             dict(bundle.training_logger.cumulative_stats))
         if n >= next_report:
             next_report = (n // report_interval + 1) * report_interval
             _report_dqn(bundle, dstate, metrics)
     if ckpt:
         _save_checkpoint(ckpt, dstate.num_steps, dstate, ws, pool,
                          dict(bundle.training_logger.cumulative_stats),
-                         lanes, force=True)
+                         force=True)
     return model, dstate
 
 

@@ -21,7 +21,6 @@ from safelife_tpu.training.env_factory import (  # noqa: E402
 from safelife_tpu_torch.models import nets as TN  # noqa: E402
 from safelife_tpu_torch.models.convert import (  # noqa: E402
     policy_params_from_flax)
-from safelife_tpu_torch.parallel import mesh as TM  # noqa: E402
 from safelife_tpu_torch.training import ppo as TP  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -226,8 +225,6 @@ def test_sharded_learner_keeps_the_heuristic_pick(sharded, monkeypatch):
     none, where the whole batch's minibatches, all of one width, search.
     One process stands for the ranks (the sums over ranks are its own)."""
     monkeypatch.setattr(TN, "SEARCH_MIN_WIDTH", 1)
-    monkeypatch.setattr(TM, "all_reduce_sum", lambda x: x.detach().clone())
-    monkeypatch.setattr(TM, "allreduce_grads", lambda model: model)
     g = torch.Generator().manual_seed(3)
     net = TN.SafeLifePolicyNetwork(view_shape=(17, 19), num_channels=3,
                                    device="cpu")

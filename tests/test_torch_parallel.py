@@ -74,9 +74,17 @@ def test_world_size_one_is_a_no_op(monkeypatch):
     assert M.allgather_level_pool(pool) is pool
     tree = {"x": torch.arange(4)}
     assert M.gather_episodes(tree) is tree
-    assert M.broadcast_tree(tree) is tree
-    np.testing.assert_array_equal(M.addressable_values(tree["x"]),
-                                  np.arange(4))
+    x = torch.arange(4.0, requires_grad=True) * 2
+    summed = M.all_reduce_sum(x)
+    assert torch.equal(summed, x) and not summed.requires_grad
+    assert M.all_gather(x) == [x]
+    assert M.all_gather_object({"a": 1}) == [{"a": 1}]
+    net = torch.nn.Linear(3, 2)
+    net(torch.ones(1, 3)).sum().backward()
+    grads = [p.grad.clone() for p in net.parameters()]
+    assert M.allreduce_grads(net) is net and M.broadcast_grads(net) is net
+    assert all(torch.equal(p.grad, g)
+               for p, g in zip(net.parameters(), grads))
     with pytest.raises(ValueError, match="no rank"):
         M.initialize_distributed(world_size=2, device="cpu")
 
@@ -356,6 +364,6 @@ def test_pool_manager_one_process_unchanged():
     mgr = LevelPoolManager(iter(levels), pool_size=4, device="cpu")
     ref = pack_levels(levels[:4], device="cpu")
     assert torch.equal(mgr.pool.board, ref.board)
-    assert mgr._local_pool is None
+    assert mgr._local_pool is mgr.pool
     assert mgr.refresh(1, in_use=[0]) == 1
     assert torch.equal(mgr.pool.board[1], torch.from_numpy(levels[4].board))

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from safelife_tpu.core import cells as JC  # noqa: E402
 from safelife_tpu.env import state as JST  # noqa: E402
 from safelife_tpu.io import iterator as JIT  # noqa: E402
 from safelife_tpu.io import levels as JL  # noqa: E402
@@ -127,6 +128,36 @@ def test_pool_manager_matches_jax():
          [int(n[-7:-4]) - 1] for n in after]))
     tm.close()
     assert it.closed
+
+
+@pytest.mark.parametrize("field", ["agents", "exits"])
+def test_pool_manager_refuses_a_level_past_its_pad(field):
+    """A level with more agents or exits than an explicit pad is refused,
+    as the JAX package's manager refuses it."""
+    def widened(load):
+        lv = load(DYNAMIC)[0].copy()
+        if field == "agents":
+            lv.agent_locs = np.concatenate([lv.agent_locs, lv.agent_locs])
+            lv.agent_names = np.concatenate([lv.agent_names,
+                                             lv.agent_names])
+            lv.points_table = np.concatenate([lv.points_table,
+                                              lv.points_table])
+        else:
+            lv.board[tuple(np.argwhere(lv.board == 0)[0])] = JC.EXIT
+        return [lv]
+
+    pads = {"pad_" + field: 1}
+    with pytest.raises(ValueError, match="pad_" + field):
+        JIT.LevelPoolManager(ListIterator(widened(JL.load_levels)),
+                             pool_size=1, **pads)
+    with pytest.raises(ValueError, match="2 %s > pad_%s=1" % (field, field)):
+        TIT.LevelPoolManager(ListIterator(widened(TL.load_levels)),
+                             pool_size=1, device="cpu", **pads)
+    # Without a pad the manager widens its own.
+    tm = TIT.LevelPoolManager(ListIterator(widened(TL.load_levels)),
+                              pool_size=1, device="cpu")
+    assert (tm.pool.num_agents, tm.pool.exit_locs.shape[1]) == \
+        ((2, 1) if field == "agents" else (1, 2))
 
 
 def test_restored_pool_matches_jax(tmp_path):

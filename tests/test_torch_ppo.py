@@ -30,6 +30,7 @@ from safelife_tpu_torch.io import levels as TL  # noqa: E402
 from safelife_tpu_torch.models import nets as TN  # noqa: E402
 from safelife_tpu_torch.models.convert import (  # noqa: E402
     policy_params_from_flax, ppo_state_from_jax)
+from safelife_tpu_torch.parallel import mesh as TM  # noqa: E402
 from safelife_tpu_torch.training import ppo as TP  # noqa: E402
 
 SMALL_VIEW = (17, 17)  # the smallest view the trunk takes
@@ -200,6 +201,29 @@ def test_train_on_batch_matches_jax_and_continues_a_jax_learner():
                                        mu[name].numpy(), rtol=0, atol=1e-5)
             np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
                                        nu[name].numpy(), rtol=0, atol=1e-5)
+
+
+def test_train_on_batch_with_a_shard_of_every_row_is_bitwise_unsharded():
+    """In one process a rank's path (the :class:`SampleShard` of one rank
+    of one, so every row) runs the ranked row selection and the loss
+    whose sums go through ``all_reduce_sum``: its 15 Adam steps leave the
+    parameters bitwise equal to ``shard=None``'s, and they moved."""
+    _, params = _jax_model(SMALL_VIEW)
+    steps, lanes, agents = 5, 4, 2
+    batch = _torch_batch(_batch(steps * lanes * agents, SMALL_VIEW, seed=2))
+    shard = TP.sample_shard(steps, agents, TM.lane_range(lanes, 0, 1), "cpu")
+    assert torch.equal(shard.index, torch.arange(steps * lanes * agents))
+    start = _torch_model(params, SMALL_VIEW).state_dict()
+    got = []
+    for s in (None, shard):
+        state = TP.init_ppo_state(
+            TP.PPOConfig(), _torch_model(params, SMALL_VIEW), device="cpu")
+        TP.train_on_batch(TP.PPOConfig(), state, batch,
+                          torch.Generator().manual_seed(4), shard=s)
+        got.append(state.model.state_dict())
+    for name, p in got[0].items():
+        assert torch.equal(p, got[1][name]), name
+    assert any(not torch.equal(p, start[k]) for k, p in got[0].items())
 
 
 def _to_flax_layout(name, x):
