@@ -34,12 +34,17 @@ non-zero:
    form also on 173x173 (just above the staging limit), 12x2600 (a view
    taller than the board), 191x157 and the boards above MAX_CELLS named
    above x B in {1, 7, 64} x A in {1,3} x E in {0,1,2}, view centres and
-   exits on the wrap edges and corners.
+   exits on the wrap edges and corners. K4 ``unpack_planes`` at N in {1,
+   25, 64, 96, 100, 512, 4097, 16384} (the widths the phases run it at)
+   x views (25,25) and (7,9) x three channel sets (the training channels,
+   the top byte with bit 0, every bit) on random words over all 32 bits,
+   the floats' bits compared.
 2. The main path: the prune-dynamic v1.0 benchmark (100 levels) through
    ``run_episodes`` at 512 lanes x 1000 steps and ``benchmark`` over the
    100 levels, with the 25x25 / dense-512 policy on packed observations
    from seeded parameters in the JAX package's layout. Launch counts are
-   zeroed just before and read just after; each kernel must have run. A
+   zeroed just before and read just after; each kernel must have run, K4
+   once a step. A
    64-lane x 200-step run with a peaked policy is held against the port's
    own CPU path: boards, rewards, done flags and final boards exact,
    policy probabilities within 1e-4.
@@ -62,8 +67,9 @@ non-zero:
    batch), with the dense-512 policy on packed 25x25 views: one warm-up
    iteration, then 3 timed ones with the launch counts zeroed just before
    and read just after (K1, K2 and K3 20 times an iteration each, no
-   global form); finite losses, parameters that moved, ``num_steps``; a
-   rollout and an update timed apart, and a profile of one iteration and
+   global form, K4 once a policy forward: 41 an iteration); finite
+   losses, parameters that moved, ``num_steps``; a rollout and an update
+   timed apart, and a profile of one iteration and
    of its two halves. Then the wrapped step on prune-dynamic (goals that
    evolve: K2 twice a step under the inaction baseline), 64 lanes x 40
    steps on the card against the port's CPU path under the same actions,
@@ -151,7 +157,7 @@ non-zero:
 10. The modes the trainer once refused. Precision: phase 5's training
    iteration at 4096 and 64 lanes under ``float32``, ``tensorfloat32`` and
    ``bfloat16`` (a warm-up and 2 timed iterations, launches K1-K3 20 an
-   iteration, a rollout and an update timed apart, a profile of the
+   iteration and K4 41, a rollout and an update timed apart, a profile of the
    update); each new mode's first-minibatch loss and gradients against
    strict float32 on the card (``MODE_BOUNDS``; the layer probe sees TF32
    exactly under ``tensorfloat32`` and bfloat16 layer outputs under
@@ -185,7 +191,8 @@ non-zero:
    ``ppo.train_iteration`` (``PPOConfig()``), the first rollout's loss
    within 1e-5 relative, the parameters bitwise equal on the ranks and
    within ``P11_UPDATE_NORM`` of the update's norm of this process's, the
-   all-reduces timed, each rank's K1-K3 launches 20 an iteration; a
+   all-reduces timed, each rank's K1-K3 launches 20 an iteration and K4
+   41; a
    32-unit DQN chunk with ``DQNConfig()``'s 100,000-view replay, every
    rank's replay equal to this process's row for row, the Q parameters
    bitwise equal on the ranks and within ``P11_DQN_MAX_ABS`` of this
@@ -219,9 +226,12 @@ Between phases 9 and 10 it times each kernel form and its plain version
 at the shapes of the path that runs it (the main path's at B = 512 and
 4096, the large-board path's at B = 64), holding their outputs there
 against each other too (a kernel's time is the profiler's device time, or
-a CUDA graph's on the device's clock, or "not timed": ``device_ms``), and
-prints, before the last line, the card's name and power limit as
-``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line (each
+a CUDA graph's on the device's clock, or "not timed": ``device_ms``), K4
+at 25, 4096 and 16,384 samples beside its bound, its plain version and
+the parent's ``unpack_obs``, then the policy's forward at 16,384 samples
+on K4 against the parent's chain (bit for bit, one K4 launch) with both
+forwards profiled, and prints, before the last line, the card's name and
+power limit as ``nvidia-smi`` reports them and one ``{"kernels": [...]}`` JSON line (each
 form's ``launches`` on its path and ``launches_bench`` in phase 12's
 chunk). The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -702,6 +712,48 @@ def check_window_obs(dev, errs, rng):
                    ", ".join(sorted(forms))))
 
 
+#: K4 cases of phase 1: samples, and view shapes (25x25, and one that is
+#: neither square nor a multiple of 4) under three channel sets: the
+#: training channels, the top byte with bit 0, and every bit. The samples
+#: are the widths the phases run K4 at: evaluation's 25 lanes, the CLI's
+#: 64, the DQN batch of 96, the benchmark over 100 levels, the main
+#: path's 512, an odd count above the training rollout's 4,096, and the
+#: learner minibatch and rollout cell's 16,384.
+UNPACK_SAMPLES = (1, 25, 64, 96, 100, 512, 4097, 16384)
+UNPACK_VIEWS = ((25, 25), (7, 9))
+UNPACK_CHANNEL_SETS = ("training", (0, 24, 25, 26, 27, 28, 29, 30, 31),
+                       tuple(range(32)))
+
+
+def unpack_channel_set(name):
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS
+
+    return TRAINING_CHANNELS if name == "training" else name
+
+
+def check_unpack(dev, errs):
+    """K4 against its plain version, bit for bit (the floats' bits compared
+    as int32), on random words over all 32 bits at UNPACK_SAMPLES x
+    UNPACK_VIEWS x UNPACK_CHANNEL_SETS."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.ops import unpack as U
+
+    rng = np.random.default_rng(9)
+    for n in UNPACK_SAMPLES:
+        for view in UNPACK_VIEWS:
+            views = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, (n,) + view).astype(np.int32)).to(dev)
+            for name in UNPACK_CHANNEL_SETS:
+                ch = unpack_channel_set(name)
+                compare(errs,
+                        lambda: ops.unpack_planes(views, ch).view(torch.int32),
+                        lambda: U.unpack_planes_plain(views, ch).view(
+                            torch.int32))
+        log("K4 unpack_planes N=%d (%d threads a sample) x views %s x %d "
+            "channel sets: exact" % (n, U.THREADS, list(UNPACK_VIEWS),
+                                     len(UNPACK_CHANNEL_SETS)))
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: the main path, and the card against the port's CPU path
 
@@ -743,7 +795,8 @@ def run_main_path(dev, levels, net, card):
     if len(records) != len(levels):
         raise AssertionError("benchmark returned %d records" % len(records))
     expected = {"fused_actions_advance": 2 * STEPS, "advance": 2 * STEPS,
-                "recenter_views": 2 * STEPS + 2}
+                "recenter_views": 2 * STEPS + 2,
+                "unpack_planes": 2 * STEPS}
     for name in ("fused_actions_advance_global", "advance_global",
                  "recenter_views_global"):
         if launches[name]:
@@ -864,9 +917,11 @@ def check_stochastic(dev, levels, net, lanes=64, steps=200):
             spawned += int(((prev & C.ALIVE) == 0).logical_and(
                 (state.board & C.ALIVE) != 0).sum())
     after = ops.launch_counts()
-    if after["fused_actions_advance"] - before["fused_actions_advance"] \
-            != steps or after["advance"] - before["advance"] != steps:
-        raise AssertionError("stochastic path skipped a kernel")
+    if any(after[k] - before[k] != steps for k in (
+            "fused_actions_advance", "advance", "unpack_planes")):
+        raise AssertionError("stochastic path launched %s over %d steps"
+                             % ({k: after[k] - before[k] for k in after},
+                                steps))
     log("stochastic navigation %d lanes x %d steps: one agent per live "
         "lane, finite rewards, %d cells came alive" % (lanes, steps, spawned))
 
@@ -1008,6 +1063,9 @@ def run_large_path(dev, levels, net, card, steps=40):
                                  "large-board path" % name)
     if launches["fused_actions_advance"] or launches["advance"]:
         raise AssertionError("a staged K1/K2 ran on boards above MAX_CELLS")
+    if launches["unpack_planes"] != steps:
+        raise AssertionError("K4 launched %d times over %d steps"
+                             % (launches["unpack_planes"], steps))
     log("large-board path: run_episodes %d lanes x %d steps of %dx%d levels "
         "in %.3f s = %.0f env-steps/s; launches %s  [%s]"
         % (LARGE_LANES, steps, LARGE_LEVEL[0], LARGE_LEVEL[1], elapsed,
@@ -1173,6 +1231,102 @@ def time_kernels(dev, pool, b):
     return out
 
 
+#: Samples at which K4 is timed: evaluation's rollout (25 lanes), a
+#: training rollout step (4096) and the rollout cell's step and a learner
+#: minibatch (16,384).
+UNPACK_TIMED = (25, 4096, 16384)
+#: Integer operations of one K4 output float: the shift, the mask and the
+#: select.
+UNPACK_OPS_PER_OUTPUT = 3
+
+
+def old_forward(net, obs):
+    """A network's outputs on packed views as the port ran it before K4:
+    ``unpack_obs`` (the shifts copied to the card, the shift, the mask and
+    the cast), the trunk's input a permuted view of it, which cuDNN
+    copies."""
+    from safelife_tpu_torch.models import nets as N
+
+    net.unpack = lambda o: N.unpack_obs(
+        o, net.unpack_channels).permute(0, 3, 2, 1)
+    try:
+        out = net(obs)
+    finally:
+        del net.unpack
+    return out if isinstance(out, tuple) else (out,)
+
+
+def time_unpack(dev, net, card):
+    """K4 at UNPACK_TIMED samples of 25x25 views and the training channels:
+    its device time beside its bound (bytes: each view word read once,
+    each float written once), the plain version's and the parent's
+    ``unpack_obs`` on its own; then the policy ``net``'s forward at
+    16,384 samples against :func:`old_forward`, bit for bit, with one K4
+    launch, and both forwards profiled (the parent's elementwise passes
+    that K4 replaces, by name). Returns {samples: timing}."""
+    from safelife_tpu_torch import ops
+    from safelife_tpu_torch.models import nets as N
+    from safelife_tpu_torch.ops import unpack as U
+
+    ch = N.TRAINING_CHANNELS
+    rng = np.random.default_rng(11)
+    out = {}
+    for n in UNPACK_TIMED:
+        views = torch.from_numpy(rng.integers(
+            0, 2 ** 28, (n,) + VIEW).astype(np.int32)).to(dev)
+        errs = {}
+        compare(errs, lambda: ops.unpack_planes(views, ch).view(torch.int32),
+                lambda: U.unpack_planes_plain(views, ch).view(torch.int32))
+        ms, how = device_ms(lambda: ops.unpack_planes(views, ch),
+                            KERNELS["unpack_planes"][2])
+        floats = n * len(ch) * VIEW[0] * VIEW[1]
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(
+            4 * n * VIEW[0] * VIEW[1] + 4 * floats,
+            UNPACK_OPS_PER_OUTPUT * floats)
+        out[n] = dict(ms=ms, timed_by=how,
+                      call_ms=events_ms(lambda: ops.unpack_planes(views, ch)),
+                      plain_ms=events_ms(
+                          lambda: U.unpack_planes_plain(views, ch)),
+                      unpack_obs_ms=events_ms(
+                          lambda: N.unpack_obs(views, ch)),
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      bytes_ms=bytes_ms, ops_ms=ops_ms,
+                      err=errs["unpack_planes"], batch=n)
+        log("timing unpack_planes B=%-5d kernel %s ms (%s; %.5f ms a call "
+            "with the wrapper), plain %.5f ms, the parent's unpack_obs "
+            "alone %.5f ms, bound %.5f ms (%s; bytes %.5f, operations "
+            "%.5f); %s%% of the bound  [%s]"
+            % (n, fmt_ms(ms), how, out[n]["call_ms"], out[n]["plain_ms"],
+               out[n]["unpack_obs_ms"], bound_ms, bound_by, bytes_ms,
+               ops_ms, "not timed" if ms is None
+               else "%.1f" % (100 * bound_ms / ms), card))
+
+    n = UNPACK_TIMED[-1]
+    obs = torch.from_numpy(rng.integers(0, 2 ** 28, (n,) + VIEW).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        ref = old_forward(net, obs)
+        before = ops.launch_counts()["unpack_planes"]
+        got = net(obs)
+        if ops.launch_counts()["unpack_planes"] != before + 1:
+            raise AssertionError("a policy forward launched K4 %d times"
+                                 % (ops.launch_counts()["unpack_planes"]
+                                    - before))
+        for g, r in zip(got, ref):
+            if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+                raise AssertionError("the policy forward on K4 differs from "
+                                     "the old chain at %d samples" % n)
+        log("policy forward at %d samples: bit for bit the old chain's, one "
+            "K4 launch  [%s]" % (n, card))
+        for what, fn in (("the parent's forward (unpack_obs, permute)",
+                          lambda: old_forward(net, obs)),
+                         ("the forward on K4", lambda: net(obs))):
+            fn()
+            profile_window(fn, "%s at %d samples" % (what, n), "forward", 1,
+                           top=12)
+    return out
+
+
 def rollout_rate(dev, pool, net, lanes, steps=200):
     """env-steps/s of run_episodes at ``lanes`` lanes (after a warm-up)."""
     from safelife_tpu_torch.env import env as E
@@ -1301,6 +1455,22 @@ def rollout_batch(run):
     return P.flatten_batch(traj, *P.compute_gae(run["pcfg"], traj, final))
 
 
+def ppo_forwards(pcfg, obs):
+    """Policy forwards of one ``train_iteration`` from observations ``obs``
+    [lanes, agents, ...] (a process's or a rank's), one K4 launch each on
+    packed views: one a rollout step, one for the final values, one a
+    learner minibatch, and one a chunk of the metrics' loss
+    (``ppo._batch_loss``, in chunks of the first minibatch's size): 41 at
+    ``PPOConfig()``'s defaults."""
+    from safelife_tpu_torch.training import ppo as P
+
+    n = obs.shape[0] * obs.shape[1] * pcfg.steps_per_env
+    chunk = P._minibatch_bounds(n, pcfg.num_minibatches)[0][1]
+    return (pcfg.steps_per_env + 1
+            + pcfg.epochs_per_batch * (pcfg.num_minibatches + 1)
+            + -(-n // max(chunk, 1)))
+
+
 def event_ms(fn):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1337,7 +1507,8 @@ def run_training_path(dev, levels, tree, lanes, card):
     steps = pcfg.steps_per_env
     expected = {"fused_actions_advance": steps * TRAIN_ITERS,
                 "advance": steps * TRAIN_ITERS,
-                "recenter_views": steps * TRAIN_ITERS}
+                "recenter_views": steps * TRAIN_ITERS,
+                "unpack_planes": ppo_forwards(pcfg, run["obs"]) * TRAIN_ITERS}
     for name, n in launches.items():
         if n != expected.get(name, 0):
             raise AssertionError("training path at %d lanes launched %s %d "
@@ -1968,6 +2139,10 @@ def run_evaluation_path(dev, levels, net, card):
     if launches["advance"] != sum(want):
         raise AssertionError("K2 launched %d times, the occupancy %d"
                              % (launches["advance"], sum(want)))
+    forwards = sum(args[5] for args, _ in rec["run_episodes:args"])
+    if launches["unpack_planes"] != forwards:
+        raise AssertionError("K4 launched %d times, the rollout's steps %d"
+                             % (launches["unpack_planes"], forwards))
     with open(os.path.join(data_dir, "benchmark-data.json")) as f:
         logged = json.load(f)
     if len(logged) != EVAL_EPISODES or not all(
@@ -2267,39 +2442,61 @@ def training_chunks(calls):
         yield args[1], args[3], args[8] * args[9]
 
 
+def chunk_forwards(calls):
+    """Network forwards of each training chunk of a run, each with its
+    network: a PPO chunk's iterations x :func:`ppo_forwards`; a DQN unit's
+    steps (one action each) plus its loss's Q and target forwards."""
+    for _, _, (args, _), _ in calls.get("training", []):
+        yield args[4].model, args[8] * ppo_forwards(args[2], args[6])
+    for _, _, (args, _), _ in calls.get("dqn_training", []):
+        yield args[4].model, args[9] * (args[8] + 2)
+
+
+def packed(model):
+    """1 if ``model`` takes packed views (one K4 launch a forward on the
+    card), else 0."""
+    return int(model.unpack_channels is not None)
+
+
 def predicted_launches(calls):
-    """K1-K3 launches of a trainer run, derived from the code and the calls
+    """K1-K4 launches of a trainer run, derived from the code and the calls
     it made: K1 and K3 once an env step (each training chunk's env steps,
     each rollout's ``max_steps``); K3 once more a reset (``W.reset`` of
     ``train_ppo`` or ``train_dqn``, a rollout's reset, a restored env
     state); K2 once an env step on a pool whose goals evolve, once a
     training step under the inaction baseline, and in each occupancy its
     pre-steps (the largest step count, at most ``max_pre_steps``) plus 2 x
-    ``num_samples``."""
-    k1 = k2 = k3 = 0
+    ``num_samples``; K4 once a forward of a network on packed views
+    (:func:`chunk_forwards`, one a rollout step)."""
+    k1 = k2 = k3 = k4 = 0
     for wcfg, pool, steps in training_chunks(calls):
         k1 += steps
         k3 += steps
         k2 += (0 if pool.all_goals_static else steps) + (
             steps if wcfg.se_baseline == "inaction" else 0)
+    for model, forwards in chunk_forwards(calls):
+        k4 += packed(model) * forwards
     for _, _, (args, _), _ in calls.get("rollout", []):
         pool, steps = args[1], args[5]
         k1 += steps
         k3 += steps + 1
         k2 += 0 if pool.all_goals_static else steps
+        k4 += packed(args[2]) * steps
     for _, _, (args, kwargs), _ in calls.get("occupancy", []):
         k2 += min(int(torch.as_tensor(args[2]).max()),
                   kwargs["max_pre_steps"]) + 2 * kwargs["num_samples"]
     k3 += len(calls.get("train_ppo", [])) + len(calls.get("train_dqn", []))
     k3 += sum(1 for *_, result in calls.get("restore", [])
               if result[1] is not None)
-    return {"fused_actions_advance": k1, "advance": k2, "recenter_views": k3}
+    return {"fused_actions_advance": k1, "advance": k2, "recenter_views": k3,
+            "unpack_planes": k4}
 
 
 def check_launches(what, launches, want):
     """The launches counted (``ops.launch_counts()``, by form) against
     ``want``; a form ``want`` does not name (the ``*_global`` ones on
-    26x26 boards) must not have run."""
+    26x26 boards, K4 where no network runs on packed views) must not have
+    run."""
     for name, n in launches.items():
         if n != want.get(name, 0):
             raise AssertionError("%s launched %s %d times, the code says %d"
@@ -3383,7 +3580,9 @@ def precision_path(dev, levels, tree, lanes, precision, card):
     n = run["pcfg"].steps_per_env * MODE_ITERS
     check_launches("%s training at %d lanes" % (precision, lanes), launches,
                    {k: n for k in ("fused_actions_advance", "advance",
-                                   "recenter_views")})
+                                   "recenter_views")}
+                   | {"unpack_planes": ppo_forwards(run["pcfg"], run["obs"])
+                      * MODE_ITERS})
     state = model_state(run)
     rollout_ms, batch = event_ms(lambda: rollout_batch(run))
     update_ms, _ = event_ms(lambda: P.train_on_batch(
@@ -3565,11 +3764,14 @@ def channels_iteration(dev, levels, tree, card, lanes=4096):
         ops.reset_launch_counts()
         ms[mode].append(event_ms(lambda: train_iteration(runs[mode]))[0])
         launches[mode] = ops.launch_counts()
-    steps = runs["packed"]["pcfg"].steps_per_env
+    pcfg = runs["packed"]["pcfg"]
     for mode, n in launches.items():
         check_launches("%s iteration at %d lanes" % (mode, lanes), n,
-                       {k: steps for k in ("fused_actions_advance",
-                                           "advance", "recenter_views")})
+                       {k: pcfg.steps_per_env
+                        for k in ("fused_actions_advance", "advance",
+                                  "recenter_views")}
+                       | {"unpack_planes": 0 if mode == "channels"
+                          else ppo_forwards(pcfg, runs[mode]["obs"])})
     traj_bytes = {}
     batches = {}
     for mode, run in runs.items():
@@ -3936,14 +4138,16 @@ def p11_env(dev, levels, lanes):
             ws.env.board.cpu().numpy(), seconds)
 
 
-def iteration_launches(pcfg, pool, wcfg):
-    """K1-K3 launches of one ``train_iteration``: K1 and K3 once a step,
-    K2 once a step under the inaction baseline (and once more on goals
-    that evolve)."""
+def iteration_launches(pcfg, pool, wcfg, obs):
+    """K1-K4 launches of one ``train_iteration`` on packed views ``obs``:
+    K1 and K3 once a step, K2 once a step under the inaction baseline (and
+    once more on goals that evolve), K4 once a forward
+    (:func:`ppo_forwards`)."""
     t = pcfg.steps_per_env
     k2 = t * ((wcfg.se_baseline == "inaction")
               + (not pool.all_goals_static))
-    return {"fused_actions_advance": t, "advance": k2, "recenter_views": t}
+    return {"fused_actions_advance": t, "advance": k2, "recenter_views": t,
+            "unpack_planes": ppo_forwards(pcfg, obs)}
 
 
 def p11_ppo(dev, levels, tree, lanes):
@@ -3997,7 +4201,7 @@ def p11_ppo(dev, levels, tree, lanes):
     finally:
         M.allreduce_grads = real
     check_launches("phase 11 PPO iteration", launches,
-                   iteration_launches(pcfg, pool, wcfg))
+                   iteration_launches(pcfg, pool, wcfg, obs))
     return {"loss0": loss0, "loss": float(m["loss"]),
             "params": flat_params(ps.model).cpu().numpy(), "ms": ms,
             "reduce_ms": sum(reduce_ms), "reduces": len(reduce_ms),
@@ -4683,6 +4887,8 @@ KERNELS = {
     "recenter_views_global": ("safelife_tpu_torch/ops/csrc/obs.cu",
                               "safelife_tpu/ops/obs.py:146",
                               "recenter_window_kernel"),
+    "unpack_planes": ("safelife_tpu_torch/ops/csrc/unpack.cu", None,
+                      "unpack_kernel"),
 }
 
 
@@ -4720,6 +4926,7 @@ def main():
                   np.stack([lv.agent_locs for lv in prune]).astype(np.int32))
     check_offsets(dev, errs)
     check_obs(dev, errs)
+    check_unpack(dev, errs)
     missing = sorted(set(KERNELS) - set(errs))
     if missing:
         raise AssertionError("phase 1 never ran %s" % missing)
@@ -4792,6 +4999,7 @@ def main():
     times_4096 = time_kernels(dev, pool, 4096)
     times_large = time_kernels(dev, pack_levels(large, device=dev),
                                LARGE_LANES)
+    times_unpack = time_unpack(dev, net, card)
     for tt in (times, times_4096, times_large):
         for name, t in tt.items():
             log("timing %-28s B=%-4d kernel %s ms (%s; %.5f ms a call "
@@ -4883,7 +5091,8 @@ def main():
     log("elapsed %.1f s" % (time.perf_counter() - t_start))
 
     kernels = []
-    timed = {**times_large, **times}
+    timed = {**times_large, **times,
+             "unpack_planes": times_unpack[UNPACK_TIMED[-1]]}
     for name, (source, replaces, _) in KERNELS.items():
         t = timed[name]
         # Each form's launches on the path that runs it.

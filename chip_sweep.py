@@ -1,12 +1,12 @@
 """The kernels over their block layouts, and the host cost of a kernel
 call, on one CUDA card.
 
-    python3 chip_sweep.py [physics] [views] [host] [large] [learner]
+    python3 chip_sweep.py [physics] [views] [unpack] [host] [large] [learner]
                           [learner-4096] [procgen] [ranks] [ranks-time]
                           [convs] [bench] [parent=DIR]
 
 from the root of a checkout, on a host with a CUDA card and ``nvcc`` (no
-part named runs all eleven; ``parent=DIR``, a checkout of another commit,
+part named runs all twelve; ``parent=DIR``, a checkout of another commit,
 e.g. the one before, ``git archive``'d under ``runs/``, adds its K3 to
 ``large``). It imports torch and the port only, prints
 the compiler's registers and spills of each kernel, and then, for 26x26
@@ -34,6 +34,13 @@ prune-dynamic boards:
   checked bit for bit, beside the pick; and the windowed form against the
   staged one (one lane a block) on the stageable boards of
   ``chip_smoke.LARGE_SHAPES`` and 96x128 at B in {1, 7, 64, 512}.
+* ``unpack``: K4 (25x25 views, the training channels, one sample a block)
+  at 25, 4096 and 16,384 samples for 128 to 1024 threads a block
+  (``ops.unpack.THREADS`` swapped), each checked against the plain version
+  bit for bit, beside K4's bytes bound; and a device-to-device
+  ``Tensor.copy_`` of as many bytes as K4 moves (half read, half written),
+  the achievable-bandwidth yardstick (``copy_yardstick``: the profiler's
+  device time over the copies launched, and a CUDA graph of them).
 * At B = 512, the host time of one wrapper call and of the parts of the
   launch path, in microseconds a call over 2000 calls.
 * ``large``: the tiled K1 and K2 (boards above ``MAX_CELLS``) over tile
@@ -108,6 +115,7 @@ from safelife_tpu_torch.env.state import pack_levels
 from safelife_tpu_torch.io.levels import load_levels
 from safelife_tpu_torch.env import env as E
 from safelife_tpu_torch.ops import _build, obs as O, physics as P
+from safelife_tpu_torch.ops import unpack as U
 
 BOARDS_PER_BLOCK = (1, 2, 4, 6, 8)
 ROWS_PER_THREAD = (26, 13, 9, 7, 5, 4)
@@ -222,14 +230,84 @@ def sweep_views(dev, pool, card):
                       "K3 %.5f ms, exact" % (
                           b, lanes, per, O.view_block_threads(
                               lanes, a, h, w, vh, vw, per), t), flush=True)
-        nbytes = cs.view_work(h, w, *args[2:], cs.VIEW)[0]
-        src = torch.zeros(nbytes // 8, dtype=torch.int32, device=dev)
-        dst = torch.empty_like(src)
-        t, how = cs.device_ms(lambda: dst.copy_(src), "Memcpy")
-        print("B=%d: yardstick, device-to-device copy_ of %d bytes (moves "
-              "%d, K3's count): %.5f ms (%s), %.1f GB/s  [%s]"
-              % (b, 4 * src.numel(), 8 * src.numel(), t, how,
-                 8 * src.numel() / t / 1e6, card), flush=True)
+        print("B=%d: %s  [%s]" % (b, copy_yardstick(
+            dev, cs.view_work(h, w, *args[2:], cs.VIEW)[0], "K3"), card),
+            flush=True)
+
+
+def copy_yardstick(dev, nbytes, kernel, n=50):
+    """The achievable-bandwidth yardstick for a kernel that moves
+    ``nbytes``: a device-to-device ``Tensor.copy_`` of half as many
+    (read once, written once), timed two ways. The profiler's device time
+    of the copy's events over n copies is divided by the n copies
+    launched, not by the events it lists, which may be more than one a
+    copy; CUDA events around a CUDA graph of the n copies hold it to the
+    device's clock. Returns the line to print."""
+    from torch.profiler import ProfilerActivity, profile
+
+    src = torch.zeros(nbytes // 8, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    moved = 8 * src.numel()
+    for _ in range(3):
+        dst.copy_(src)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+    # "Memcpy DtoD": the device's copy, not the host's cudaMemcpyAsync.
+    events = [e for e in prof.key_averages() if "Memcpy DtoD" in e.key]
+    prof_ms = sum(e.device_time_total for e in events) / n / 1e3
+    graph_ms = cs.graph_ms(lambda: dst.copy_(src), n)
+    return ("yardstick, device-to-device copy_ of %d bytes (moves %d, %s's "
+            "count): profiler %.5f ms a copy (%d copies; events %s), %.1f "
+            "GB/s; CUDA graph of %d copies %.5f ms a copy, %.1f GB/s"
+            % (moved // 2, moved, kernel, prof_ms, n, "; ".join(
+                "%s x%d, %.1f us" % (e.key, e.count, e.device_time_total)
+                for e in events), moved / prof_ms / 1e6, n, graph_ms,
+               moved / graph_ms / 1e6))
+
+
+#: Samples K4 is swept at, and the threads a block it tries.
+UNPACK_SAMPLES = (25, 4096, 16384)
+UNPACK_THREADS = (128, 256, 512, 1024)
+
+
+@contextlib.contextmanager
+def unpack_threads(threads):
+    """Launch K4 with ``threads`` threads a block while the context is
+    open."""
+    picked = U.THREADS
+    U.THREADS = threads
+    try:
+        yield
+    finally:
+        U.THREADS = picked
+
+
+def sweep_unpack(dev, card):
+    from safelife_tpu_torch.models.nets import TRAINING_CHANNELS as ch
+
+    vh, vw = cs.VIEW
+    for n in UNPACK_SAMPLES:
+        views = torch.randint(0, 2 ** 28, (n, vh, vw), dtype=torch.int32,
+                              device=dev)
+        ref = U.unpack_planes_plain(views, ch)
+        nbytes = 4 * n * vh * vw * (1 + len(ch))
+        print("N=%d: the wrapper takes %d threads; bound %.5f ms (bytes)  "
+              "[%s]" % (n, U.THREADS, nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                        card), flush=True)
+        for threads in UNPACK_THREADS:
+            with unpack_threads(threads):
+                t = cs.device_ms(lambda: U.unpack_planes(views, ch),
+                                 "unpack_kernel")[0]
+                got = U.unpack_planes(views, ch)
+            cs.max_err([(got.view(torch.int32), ref.view(torch.int32))])
+            print("N=%d threads=%d: K4 %s ms, exact"
+                  % (n, threads, cs.fmt_ms(t)), flush=True)
+        print("N=%d: %s  [%s]" % (n, copy_yardstick(dev, nbytes, "K4"),
+                                  card), flush=True)
 
 
 #: Threads a block of the windowed K3 the sweep tries.
@@ -979,8 +1057,8 @@ def main():
     pick = next((x.split("=", 1)[1] for x in args
                  if x.startswith("convs=")), None)
     parts = [x for x in args if "=" not in x] or ([] if pick else [
-        "physics", "views", "host", "large", "learner", "learner-4096",
-        "procgen", "ranks", "ranks-time", "convs", "bench"])
+        "physics", "views", "unpack", "host", "large", "learner",
+        "learner-4096", "procgen", "ranks", "ranks-time", "convs", "bench"])
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     _build.kernels()
@@ -995,6 +1073,8 @@ def main():
     if "views" in parts:
         sweep_views(dev, pool, card)
         sweep_window(dev, card)
+    if "unpack" in parts:
+        sweep_unpack(dev, card)
     if "host" in parts:
         host = host_cost(dev, pool)
         print("host time a call at B=%d (us): %s  [%s]"

@@ -4,7 +4,8 @@
 head (dense 512) or dueling Q heads (dense 256 each).
 
 Port of ``safelife_tpu/models/nets.py``: ``PRECISIONS`` (``:28-41``),
-``unpack_obs`` (``:74-81``),
+``unpack_obs`` (``:74-81``, in :mod:`..ops.unpack` beside K4's plain
+version, which calls it),
 ``SafeLifeCNN`` (``:84-101``), ``cnn_output_features`` (``:104-113``),
 ``SafeLifePolicyNetwork`` (``:116-146``) and ``SafeLifeQNetwork``
 (``:149-171``, two dense-256 dueling heads). The layers keep torch's own
@@ -16,8 +17,12 @@ Inputs keep the JAX package's layout: NHWC float observations
 is set. As there (``nets.py:94``), the spatial axes are swapped before the
 convolutions to match the reference's (c, w, h) geometry, and the feature
 map is flattened in (h, w, c) order so that flax parameters load
-unchanged (:mod:`.convert`). The convolutions and dense layers are plain
-``nn.Conv2d``/``nn.Linear``: the JAX package leaves them to XLA too.
+unchanged (:mod:`.convert`). Packed views reach the trunk through K4
+(:func:`..ops.unpack_planes`), which writes the swapped float32 planes,
+channels first, in one pass; NHWC inputs are cast and their axes swapped
+as a strided view, which cuDNN copies. The convolutions and dense layers
+are plain ``nn.Conv2d``/``nn.Linear``: the JAX package leaves them to XLA
+too.
 
 Each network runs in its ``precision`` (:data:`PRECISIONS`, the JAX
 package's names): strict float32 by default, TF32 for cuBLAS and cuDNN, or
@@ -47,7 +52,9 @@ import contextlib
 import torch
 from torch import nn
 
+from .. import ops
 from ..core import cells as C
+from ..ops.unpack import unpack_obs  # noqa: F401
 from ..utils.device import resolve_device
 
 #: The training observation channel set (parity: the JAX package's
@@ -169,14 +176,6 @@ def flax_init_(net):
     return net
 
 
-def unpack_obs(obs, channels):
-    """Packed int32 views [..., vh, vw] -> float32 [..., vh, vw, C]. The
-    shift and mask run on the int32 word: bits above 24 do not survive a
-    float32 cast."""
-    shifts = torch.tensor(channels, dtype=torch.int32, device=obs.device)
-    return ((obs[..., None] >> shifts) & 1).to(torch.float32)
-
-
 def cnn_output_features(input_shape):
     """Feature count after the trunk for an (h, w, c) input."""
     h, w, _ = input_shape
@@ -186,7 +185,8 @@ def cnn_output_features(input_shape):
 
 
 class SafeLifeCNN(nn.Module):
-    """Shared convolutional trunk. NHWC float input → [N, features]."""
+    """Shared convolutional trunk. float32 planes [N, C, vw, vh] (the
+    input's spatial axes swapped, channels first) → [N, features]."""
 
     def __init__(self, num_channels, device="cuda"):
         super().__init__()
@@ -196,8 +196,6 @@ class SafeLifeCNN(nn.Module):
         self.conv2 = nn.Conv2d(64, 64, 3, stride=1, device=dev)
 
     def forward(self, x):
-        # (h, w, c) -> (w, h, c) as in the JAX package, then NCHW.
-        x = x.permute(0, 3, 2, 1)
         x = torch.relu(self.conv0(x))
         x = torch.relu(self.conv1(x))
         x = torch.relu(self.conv2(x))
@@ -224,20 +222,22 @@ class _PackedViewNetwork(nn.Module):
         self.features = cnn_output_features(
             tuple(view_shape) + (num_channels,))
 
-    def trunk(self, obs):
-        """Trunk features [N, features]; call inside
-        :func:`learner_precision` of ``self.precision``."""
-        obs = obs.to(torch.float32)
+    def trunk(self, x):
+        """Trunk features [N, features] of :meth:`unpack`'s planes; call
+        inside :func:`learner_precision` of ``self.precision``."""
         if torch.backends.cudnn.benchmark:
-            _TRUNK_KEYS.add((obs.device.type, tuple(obs.shape),
+            _TRUNK_KEYS.add((x.device.type, tuple(x.shape),
                              PRECISIONS[self.precision],
                              torch.is_grad_enabled()))
-        return self.cnn(obs)
+        return self.cnn(x)
 
     def unpack(self, obs):
+        """The trunk's input, float32 [N, C, vw, vh]: packed views through
+        K4, contiguous; NHWC floats or uint8 channels cast, with their axes
+        swapped (h, w, c) -> (c, w, h) as in the JAX package."""
         if self.unpack_channels is not None:
-            obs = unpack_obs(obs, self.unpack_channels)
-        return obs
+            return ops.unpack_planes(obs, self.unpack_channels)
+        return obs.to(torch.float32).permute(0, 3, 2, 1)
 
 
 class SafeLifePolicyNetwork(_PackedViewNetwork):
@@ -259,10 +259,9 @@ class SafeLifePolicyNetwork(_PackedViewNetwork):
         self.logits = nn.Linear(HIDDEN_WIDTH, NUM_ACTIONS, device=dev)
 
     def forward(self, obs):
-        obs = self.unpack(obs)
-        with learner_precision(self.precision, obs.device.type,
-                               obs.shape[0]):
-            x = torch.relu(self.dense(self.trunk(obs)))
+        x = self.unpack(obs)
+        with learner_precision(self.precision, x.device.type, x.shape[0]):
+            x = torch.relu(self.dense(self.trunk(x)))
             value = self.value(x)[..., 0]
             logits = self.logits(x)
         return value.float(), torch.softmax(logits.float(), dim=-1)
@@ -285,10 +284,9 @@ class SafeLifeQNetwork(_PackedViewNetwork):
         self.value = nn.Linear(Q_HIDDEN_WIDTH, 1, device=dev)
 
     def forward(self, obs):
-        obs = self.unpack(obs)
-        with learner_precision(self.precision, obs.device.type,
-                               obs.shape[0]):
-            x = self.trunk(obs)
+        x = self.unpack(obs)
+        with learner_precision(self.precision, x.device.type, x.shape[0]):
+            x = self.trunk(x)
             adv = self.adv(torch.relu(self.adv_hidden(x)))
             val = self.value(torch.relu(self.value_hidden(x)))
         adv, val = adv.float(), val.float()

@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: source file -> {C entry point: its argument types}. Each entry point
 #: launches one kernel form (the staged one, or the form for shapes too
 #: large to stage whole: K1/K2 tiled, K3 windowed; its entry point ends in
-#: ``_global``); each source also has
+#: ``_global``; K4 has one form); each source also has
 #: ``<first entry>_error``.
 KERNELS = {
     "advance.cu": {
@@ -45,6 +45,9 @@ KERNELS = {
     "obs.cu": {
         "sl_recenter_views": [_P] * 7 + [_I] * 10 + [_P],
         "sl_recenter_views_global": [_P] * 7 + [_I] * 10 + [_P],
+    },
+    "unpack.cu": {
+        "sl_unpack_planes": [_P] * 2 + [_I] * 3 + [_P] + [_I] * 2 + [_P],
     },
 }
 _HEADERS = ("ca.cuh",)

@@ -2,7 +2,9 @@
 // (advance.cu): cell constants, the Philox4x32-10 spawn draw, the packed
 // cell word, the one-cell CA rule, and the block-level passes both kernels
 // are built from (staging copies and the separable CA step, for whole
-// boards and for tiles of larger ones).
+// boards and for tiles of larger ones). K3 (obs.cu) takes its staging
+// copies from here too, and K3 and K4 (unpack.cu) their divisions by a
+// launch constant (`FastDiv`).
 //
 // The CA step computes what `_advance_block` computes in
 // safelife_tpu/ops/physics.py:128-175 (and safelife_tpu/core/advance.py):
@@ -449,5 +451,22 @@ __device__ __forceinline__ bool tile_vec(const void* a, const void* b, int w,
                                          int cols) {
   return ((((uintptr_t)a | (uintptr_t)b) & 15) | (w & 3) | (cols & 3)) == 0;
 }
+
+// Division by a divisor fixed for a launch: a multiply-high, an add and a
+// shift, with the magic number computed on the host (Granlund and
+// Montgomery's method, as PyTorch's IntDivider uses it). Exact for
+// 0 <= n < 2^31 and 1 <= d < 2^31.
+struct FastDiv {
+  unsigned magic;
+  int shift;
+
+  __host__ explicit FastDiv(int d) : shift(0) {
+    while ((1u << shift) < (unsigned)d) ++shift;
+    magic = (unsigned)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)((__umulhi((unsigned)n, magic) + (unsigned)n) >> shift);
+  }
+};
 
 }  // namespace sl

@@ -81,23 +81,6 @@ __device__ __forceinline__ int wrap_mod(int x, int n) {
   return (unsigned)y < (unsigned)n ? y : floor_mod(x, n);
 }
 
-// Division by a divisor fixed for a launch: a multiply-high, an add and a
-// shift, with the magic number computed on the host (Granlund and
-// Montgomery's method, as PyTorch's IntDivider uses it). Exact for
-// 0 <= n < 2^31 and 1 <= d < 2^31.
-struct FastDiv {
-  unsigned magic;
-  int shift;
-
-  __host__ explicit FastDiv(int d) : shift(0) {
-    while ((1u << shift) < (unsigned)d) ++shift;
-    magic = (unsigned)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
-  }
-  __device__ __forceinline__ int operator()(int n) const {
-    return (int)((__umulhi((unsigned)n, magic) + (unsigned)n) >> shift);
-  }
-};
-
 // Element (row * vw + col) of a view centred at (ccy, ccx) that the exit at
 // (ey, ex) projects to: its wrapped offset from the centre, clipped to the
 // view's perimeter (safelife_tpu/env/env.py:192-206). The windowed form
