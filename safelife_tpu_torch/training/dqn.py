@@ -44,10 +44,17 @@ equals the one-process replay. The sample indices come from the generator
 that every rank seeds alike, so every rank takes the same Adam step;
 rank 0's gradients are broadcast before it, which keeps the parameters
 bitwise equal where a library's backward does not sum in a fixed order.
+
+Under a profiler a unit opens the spans ``dqn/unit``
+(:func:`collect_and_optimize`), ``dqn/collect``, ``dqn/push`` (inside
+it) and ``dqn/optimize`` (:mod:`..utils.trace`). :func:`replay_counts`
+counts the replay rows pushed (every valid entry, ``idx``'s advance) and
+sampled into learner batches, as ``ops.launch_counts`` counts launches.
 """
 
 import copy
 import dataclasses
+import functools
 
 import torch
 
@@ -55,9 +62,26 @@ from ..env import wrappers as W
 from ..models.nets import learner_precision
 from ..parallel import mesh as M
 from ..utils.device import require_device, resolve_device
+from ..utils.trace import span
 from .ppo import (EPISODE_KEYS, _flatten_agents, _model_device, _stack,
                   make_optimizer)
 from .runner import epsilon_greedy
+
+
+#: Replay rows since the last :func:`reset_replay_counts`: "pushed", the
+#: valid entries of every push (the last ``capacity`` of them written),
+#: and "sampled", the rows gathered into learner batches.
+_ROWS = {"pushed": 0, "sampled": 0}
+
+
+def reset_replay_counts():
+    for name in _ROWS:
+        _ROWS[name] = 0
+
+
+def replay_counts():
+    """Replay rows pushed and sampled since the last reset, by name."""
+    return dict(_ROWS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +157,7 @@ def _land(buf, valid):
     slots = (buf.idx + torch.arange(first, count, device=pos.device)) \
         % buf.capacity
     buf.idx += count
+    _ROWS["pushed"] += count
     return pos[first:], slots
 
 
@@ -177,6 +202,16 @@ def init_trajectories(batch, n, obs_shape, obs_dtype=torch.uint8,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _discounts(gamma, n, device):
+    """float64 [n] on ``device``: 0, then gamma^1 .. gamma^(n-1) as float32
+    powers. Made once a (gamma, n, device): a copy to the card every step
+    would make the host wait for the device every step."""
+    gammas = torch.tensor(gamma, dtype=torch.float32) ** torch.arange(
+        1, n, dtype=torch.float32)
+    return torch.cat([torch.zeros(1), gammas]).double().to(device)
+
+
 def step_trajectories(cfg, traj, obs, action, reward, next_obs, done,
                       valid=None):
     """Advance the n-step rings one step; emit replay-entry candidates.
@@ -213,11 +248,8 @@ def step_trajectories(cfg, traj, obs, action, reward, next_obs, done,
     # Discount the new reward into the older entries, rounded once as the
     # fused multiply-add that XLA makes of it under jit (float64 holds the
     # float32 product exactly).
-    gammas = torch.tensor(cfg.gamma, dtype=torch.float32) ** torch.arange(
-        1, n, dtype=torch.float32)
-    disc = torch.cat([torch.zeros(1), gammas]).to(reward.device)
     new_reward = (shifted_reward.double() + reward.double()[:, None]
-                  * disc.double()[None, :]).float()
+                  * _discounts(cfg.gamma, n, reward.device)[None, :]).float()
 
     done_t = torch.ones_like(done)
     emissions = {
@@ -282,29 +314,31 @@ def push_emissions(buf, emissions):
     rows of the kept entries that lie in its lanes (zeros elsewhere), and
     the rows are summed over the ranks, bit for bit (as integers). In one
     process the gather and the sum are the identity."""
-    valid = torch.stack([e["valid"] for e in emissions])
-    n = valid.shape[2]
-    masks = torch.stack(M.all_gather(valid), 2)  # [T, K, R, n]
-    world = masks.shape[2]
-    pos, slots = _land(buf, masks)
-    if not pos.numel():
+    with span("dqn/push"):
+        valid = torch.stack([e["valid"] for e in emissions])
+        n = valid.shape[2]
+        masks = torch.stack(M.all_gather(valid), 2)  # [T, K, R, n]
+        world = masks.shape[2]
+        pos, slots = _land(buf, masks)
+        if not pos.numel():
+            return buf
+        # A global position of [T, K, R, n] -> the rank's [T, K, n] one.
+        tk, lane = pos // (world * n), pos % (world * n)
+        planes, obs, next_obs = _emission_rows(emissions,
+                                               tk * n + lane % n)
+        other = lane // n != M.process_index()
+        rows = {"action": planes["action"].to(torch.int32),
+                "reward": planes["reward"].view(torch.int32),
+                "done": planes["done"].to(torch.int32),
+                "obs": obs, "next_obs": next_obs}
+        rows = {k: M.all_reduce_sum(v.masked_fill_(
+            other.reshape((-1,) + (1,) * (v.dim() - 1)), 0))
+            for k, v in rows.items()}
+        _write(buf, slots, action=rows["action"],
+               reward=rows["reward"].view(torch.float32),
+               done=rows["done"] != 0, obs=rows["obs"],
+               next_obs=rows["next_obs"])
         return buf
-    # A global position of [T, K, R, n] -> the rank's [T, K, n] one.
-    tk, lane = pos // (world * n), pos % (world * n)
-    planes, obs, next_obs = _emission_rows(emissions, tk * n + lane % n)
-    other = lane // n != M.process_index()
-    rows = {"action": planes["action"].to(torch.int32),
-            "reward": planes["reward"].view(torch.int32),
-            "done": planes["done"].to(torch.int32),
-            "obs": obs, "next_obs": next_obs}
-    rows = {k: M.all_reduce_sum(v.masked_fill_(
-        other.reshape((-1,) + (1,) * (v.dim() - 1)), 0))
-        for k, v in rows.items()}
-    _write(buf, slots, action=rows["action"],
-           reward=rows["reward"].view(torch.float32),
-           done=rows["done"] != 0, obs=rows["obs"],
-           next_obs=rows["next_obs"])
-    return buf
 
 
 def td_loss(cfg, model, target_model, batch):
@@ -377,33 +411,34 @@ def collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator, n_steps,
     (``dqn.py:296-297``). With a rank's ``lanes`` the state is those
     lanes' and the push gathers every rank's emissions. Returns (ws, obs,
     each step's episode records [T, B, ...])."""
-    emissions, records = [], []
-    for t in range(n_steps):
-        b, a = obs.shape[:2]
-        flat_obs = _flatten_agents(obs)
-        # Only live (non-padded, not-yet-finished) agents make entries.
-        valid = _flatten_agents(
-            ws.env.is_active
-            & pool.agent_mask.index_select(0, ws.env.level_idx))
-        if actions is None:
-            act = act_epsilon_greedy(
-                dstate.model, flat_obs,
-                float(epsilon_schedule(cfg, dstate.num_steps)), generator,
-                lanes)
-        else:
-            act = actions[t].reshape(-1).to(device=flat_obs.device,
-                                            dtype=torch.int64)
-        ws, obs, reward, done, info = W.step(
-            env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
-            se_penalty_coef=0.0, min_perf_fraction=1.0, lanes=lanes)
-        dstate.traj, em = step_trajectories(
-            cfg, dstate.traj, flat_obs, act, _flatten_agents(reward),
-            _flatten_agents(obs), _flatten_agents(done), valid)
-        dstate.num_steps += b if lanes is None else lanes.total
-        emissions.append(em)
-        records.append({k: info[k] for k in EPISODE_KEYS})
-    dstate.replay = push_emissions(dstate.replay, emissions)
-    return ws, obs, _stack(records)
+    with span("dqn/collect"):
+        emissions, records = [], []
+        for t in range(n_steps):
+            b, a = obs.shape[:2]
+            flat_obs = _flatten_agents(obs)
+            # Only live (non-padded, not-yet-finished) agents make entries.
+            valid = _flatten_agents(
+                ws.env.is_active
+                & pool.agent_mask.index_select(0, ws.env.level_idx))
+            if actions is None:
+                act = act_epsilon_greedy(
+                    dstate.model, flat_obs,
+                    float(epsilon_schedule(cfg, dstate.num_steps)),
+                    generator, lanes)
+            else:
+                act = actions[t].reshape(-1).to(device=flat_obs.device,
+                                                dtype=torch.int64)
+            ws, obs, reward, done, info = W.step(
+                env_cfg, wcfg, pool, ws, act.reshape(b, a), generator,
+                se_penalty_coef=0.0, min_perf_fraction=1.0, lanes=lanes)
+            dstate.traj, em = step_trajectories(
+                cfg, dstate.traj, flat_obs, act, _flatten_agents(reward),
+                _flatten_agents(obs), _flatten_agents(done), valid)
+            dstate.num_steps += b if lanes is None else lanes.total
+            emissions.append(em)
+            records.append({k: info[k] for k in EPISODE_KEYS})
+        dstate.replay = push_emissions(dstate.replay, emissions)
+        return ws, obs, _stack(records)
 
 
 def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
@@ -415,32 +450,35 @@ def optimize(cfg, dstate, generator, n_env_steps, sample_idx=None):
     collected. Over ranks every rank holds the same replay and draws the
     same indices; rank 0's gradients are broadcast before the step.
     Returns the metrics (the loss's from before the step)."""
-    replay = dstate.replay
-    size = replay.size()
-    dev = replay.obs.device
-    if sample_idx is None:
-        sample_idx = torch.randint(0, max(size, 1), (cfg.batch_size,),
-                                   generator=generator, device=dev)
-    else:
-        sample_idx = torch.as_tensor(sample_idx, device=dev).long()
-    batch = {k: getattr(replay, k).index_select(0, sample_idx)
-             for k in ("obs", "action", "reward", "next_obs", "done")}
-    warm = size >= cfg.replay_initial
-    with learner_precision(dstate.model.precision, dev.type,
-                           sample_idx.shape[0]), \
-            torch.set_grad_enabled(warm):
-        loss, metrics = td_loss(cfg, dstate.model, dstate.target_model, batch)
-        if warm:
-            dstate.optimizer.zero_grad(set_to_none=False)
-            loss.backward()
-            M.broadcast_grads(dstate.model)
-            dstate.optimizer.step()
-    n, every = dstate.num_steps, cfg.target_update_interval
-    if n // every > (n - n_env_steps) // every:
-        dstate.target_model.load_state_dict(dstate.model.state_dict())
-    metrics["epsilon"] = epsilon_schedule(cfg, n)
-    metrics["replay_size"] = size
-    return metrics
+    with span("dqn/optimize"):
+        replay = dstate.replay
+        size = replay.size()
+        dev = replay.obs.device
+        if sample_idx is None:
+            sample_idx = torch.randint(0, max(size, 1), (cfg.batch_size,),
+                                       generator=generator, device=dev)
+        else:
+            sample_idx = torch.as_tensor(sample_idx, device=dev).long()
+        _ROWS["sampled"] += sample_idx.shape[0]
+        batch = {k: getattr(replay, k).index_select(0, sample_idx)
+                 for k in ("obs", "action", "reward", "next_obs", "done")}
+        warm = size >= cfg.replay_initial
+        with learner_precision(dstate.model.precision, dev.type,
+                               sample_idx.shape[0]), \
+                torch.set_grad_enabled(warm):
+            loss, metrics = td_loss(cfg, dstate.model, dstate.target_model,
+                                    batch)
+            if warm:
+                dstate.optimizer.zero_grad(set_to_none=False)
+                loss.backward()
+                M.broadcast_grads(dstate.model)
+                dstate.optimizer.step()
+        n, every = dstate.num_steps, cfg.target_update_interval
+        if n // every > (n - n_env_steps) // every:
+            dstate.target_model.load_state_dict(dstate.model.state_dict())
+        metrics["epsilon"] = epsilon_schedule(cfg, n)
+        metrics["replay_size"] = size
+        return metrics
 
 
 def collect_and_optimize(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
@@ -451,14 +489,15 @@ def collect_and_optimize(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
     the model live on ``device``. Updates ``dstate`` in place; returns
     (dstate, ws, obs, metrics) with ``episodes`` [T, B, ...] in the
     metrics."""
-    require_device(device, pool.device, "the level pool")
-    require_device(device, _model_device(dstate.model), "the model")
-    b = obs.shape[0] if lanes is None else lanes.total
-    ws, obs, episodes = collect(env_cfg, wcfg, cfg, pool, dstate, ws, obs,
-                                generator, n_steps, actions, lanes)
-    metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx)
-    metrics["episodes"] = episodes
-    return dstate, ws, obs, metrics
+    with span("dqn/unit"):
+        require_device(device, pool.device, "the level pool")
+        require_device(device, _model_device(dstate.model), "the model")
+        b = obs.shape[0] if lanes is None else lanes.total
+        ws, obs, episodes = collect(env_cfg, wcfg, cfg, pool, dstate, ws,
+                                    obs, generator, n_steps, actions, lanes)
+        metrics = optimize(cfg, dstate, generator, n_steps * b, sample_idx)
+        metrics["episodes"] = episodes
+        return dstate, ws, obs, metrics
 
 
 def train_chunk(env_cfg, wcfg, cfg, pool, dstate, ws, obs, generator,

@@ -45,6 +45,14 @@ Names take ``/``. The spans, where they are opened
   cell type whose distributions differ in more.
 * ``eval/records``: ``benchmark``'s records and
   ``data_logger.log_episode``; a batch.
+* ``dqn/unit``: ``training/dqn.py::collect_and_optimize``; a unit.
+* ``dqn/collect``: ``dqn.py::collect`` (the ε-greedy forwards, the
+  wrapped steps, the n-step rings and the push); a unit.
+* ``dqn/push``: ``dqn.py::push_emissions``, inside ``dqn/collect``; a
+  unit.
+* ``dqn/optimize``: ``dqn.py::optimize`` (the replay gather, the TD loss
+  with the target network's forward, the backward, the Adam step and the
+  target sync); a unit.
 
 To see them, run any profiler around a training iteration or a
 benchmark call and read its events or ``key_averages()`` by name.
@@ -59,6 +67,7 @@ SPANS = (
     "rollout/episodes", "eval/benchmark", "eval/batch",
     "side_effects/occupancy", "eval/readback", "side_effects/emd",
     "side_effects/emd_exact", "side_effects/emd_sinkhorn", "eval/records",
+    "dqn/unit", "dqn/collect", "dqn/push", "dqn/optimize",
 )
 
 _recording = torch._C._autograd._profiler_enabled

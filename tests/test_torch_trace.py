@@ -1,9 +1,9 @@
 """The port's layer spans (``utils/trace.py``) on the CPU, at tiny sizes:
 with no profiler running no ``record_function`` range is opened on the
-training, rollout and evaluation paths; under ``torch.profiler`` every span
-appears under its documented parent, as often as documented (the EMD's
-two solvers on a side-effect scoring of their own); and the outputs are bit
-for bit the same with the profiler on and off."""
+training, DQN, rollout and evaluation paths; under ``torch.profiler``
+every span appears under its documented parent, as often as documented
+(the EMD's two solvers on a side-effect scoring of their own); and the
+outputs are bit for bit the same with the profiler on and off."""
 
 import copy
 import dataclasses
@@ -20,6 +20,7 @@ from safelife_tpu_torch.env import env as TE, state as TST  # noqa: E402
 from safelife_tpu_torch.env import wrappers as TW  # noqa: E402
 from safelife_tpu_torch.io import levels as TL  # noqa: E402
 from safelife_tpu_torch.models import nets as TN  # noqa: E402
+from safelife_tpu_torch.training import dqn as TD  # noqa: E402
 from safelife_tpu_torch.training import ppo as TP  # noqa: E402
 from safelife_tpu_torch.training import runner as TR  # noqa: E402
 from safelife_tpu_torch.utils import trace  # noqa: E402
@@ -47,6 +48,10 @@ EVAL_PARENTS = {
     "side_effects/occupancy": "eval/batch", "eval/readback": "eval/batch",
     "side_effects/emd": "eval/batch",
     "side_effects/emd_exact": "side_effects/emd", "eval/records": "eval/batch"}
+DQN_PARENTS = {
+    "dqn/unit": None, "dqn/collect": "dqn/unit", "env/step": "dqn/collect",
+    "env/core": "env/step", "env/obs": "env/step", "dqn/push": "dqn/collect",
+    "dqn/optimize": "dqn/unit"}
 SIDE_EFFECTS_PARENTS = {
     "side_effects/emd": None, "side_effects/emd_exact": "side_effects/emd",
     "side_effects/emd_sinkhorn": "side_effects/emd"}
@@ -68,6 +73,8 @@ EVAL_COUNTS = {
     "side_effects/emd": EPISODES, "eval/records": BATCHES,
     # Each of the three episodes changes one cell type's distribution.
     "side_effects/emd_exact": EPISODES}
+DQN_COUNTS = {"dqn/unit": 1, "dqn/collect": 1, "dqn/push": 1,
+              "dqn/optimize": 1, "env/step": 1, "env/core": 1, "env/obs": 1}
 SIDE_EFFECTS_COUNTS = {"side_effects/emd": 1, "side_effects/emd_exact": 1,
                        "side_effects/emd_sinkhorn": 1}
 
@@ -91,6 +98,33 @@ def _train():
     gen = torch.Generator().manual_seed(4)
     return lambda: TP.train_iteration(cfg, wcfg, PPO, pool, ps, ws, obs,
                                       gen, 1.0, device="cpu")
+
+
+def _dqn():
+    """One unit (a step of every lane, then an Adam step) of a learner
+    whose replay is warm, set up: it returns (learner, env state,
+    observations, metrics)."""
+    levels = TL.load_levels("benchmarks/v1.0/append-spawn.npz")[:3]
+    pool = TST.pack_levels(levels, device="cpu")
+    cfg = TE.EnvConfig(view_shape=VIEW, output_channels=None, time_limit=3)
+    wcfg = TW.WrapperConfig()
+    dcfg = TD.DQNConfig(batch_size=4, optimize_interval=LANES,
+                        replay_size=16, replay_initial=1,
+                        target_update_interval=LANES)
+    torch.manual_seed(0)
+    model = TN.SafeLifeQNetwork(view_shape=VIEW,
+                                unpack_channels=TN.TRAINING_CHANNELS,
+                                device="cpu")
+    ws, obs = TW.reset(cfg, wcfg, pool, LANES, device="cpu")
+    ds = TD.init_dqn_state(dcfg, model, LANES, VIEW, obs.dtype, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    # The rings fill and the first episodes end: the replay is warm.
+    for _ in range(3):
+        _, ws, obs, _ = TD.collect_and_optimize(cfg, wcfg, dcfg, pool, ds,
+                                                ws, obs, gen, 1, device="cpu")
+    assert ds.replay.size() >= dcfg.replay_initial
+    return lambda: TD.collect_and_optimize(cfg, wcfg, dcfg, pool, ds, ws,
+                                           obs, gen, 1, device="cpu")
 
 
 def _eval_setup():
@@ -135,6 +169,7 @@ def _side_effects():
 PATHS = {"train_iteration": (_train, TRAIN_PARENTS, TRAIN_COUNTS),
          "run_episodes": (_rollout, ROLLOUT_PARENTS, ROLLOUT_COUNTS),
          "benchmark": (_benchmark, EVAL_PARENTS, EVAL_COUNTS),
+         "collect_and_optimize": (_dqn, DQN_PARENTS, DQN_COUNTS),
          "episode_side_effects": (_side_effects, SIDE_EFFECTS_PARENTS,
                                   SIDE_EFFECTS_COUNTS)}
 
